@@ -1,0 +1,8 @@
+"""PyTorch / CUDA port of the ``repro`` package.
+
+It mirrors the JAX package's module paths and function names, imports
+nothing of JAX or of ``repro``, and runs its entry points on ``cuda``
+unless the caller asks for ``device="cpu"``.  Ported so far: paged serving
+of the dense GQA decoders (``launch/serve.py --paged``) with a hand-written
+flash-decode kernel for Hopper.
+"""

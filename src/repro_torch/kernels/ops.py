@@ -1,0 +1,46 @@
+"""Dispatch for the port's kernels (counterpart of
+``repro/kernels/ops.py``).
+
+``impl``:
+  * "auto"   — the CUDA kernel for CUDA tensors, the plain version
+               (kernels/ref.py) for CPU tensors
+  * "kernel" — the CUDA kernel; raises on CPU tensors
+  * "plain"  — the plain PyTorch version on any device; taken only when
+               asked for (tests, and chip_smoke.py's comparisons)
+
+A CUDA tensor never falls back to the plain version: the kernel launches
+or the call raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref as kref
+
+IMPLS = ("auto", "kernel", "plain")
+
+
+def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, block_tables: torch.Tensor,
+                 lengths: torch.Tensor, *, window: int = 0,
+                 scale: Optional[float] = None,
+                 impl: str = "auto") -> torch.Tensor:
+    """Paged decode attention (the serving hot path).
+
+    q [B, Hq, D], one query token per sequence; k_pages/v_pages
+    [Hkv, P, page, D], the paged pool; block_tables [B, max_pages] int32;
+    lengths [B] int32, valid tokens per sequence incl. the query.  The
+    kernel's launch count is ``kernels.flash_decode.flash_decode.launches``.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    if impl == "auto":
+        impl = "kernel" if q.is_cuda else "plain"
+    if impl == "plain":
+        return kref.flash_decode_plain(q, k_pages, v_pages, block_tables,
+                                       lengths, window=window, scale=scale)
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    return fd(q, k_pages, v_pages, block_tables, lengths, window=window,
+              scale=scale)

@@ -1,0 +1,116 @@
+"""Shared building blocks for the model zoo (PyTorch port of
+``repro/models/common.py``).
+
+Initializers take an explicit ``device`` and ``torch.Generator`` and draw
+each tensor on that device, in fp32, before casting to the parameter type,
+so a full-width model never exists in fp32 as a whole.  They follow the
+reference's distributions, not its random bits (jax threefry and torch
+Philox differ): parity tests carry the reference's weights across with
+``repro_torch/convert.py``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# --------------------------------------------------------------------- #
+# initializers
+# --------------------------------------------------------------------- #
+
+
+def _truncated_normal(shape, lo: float, hi: float, *, device,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Standard normal truncated to [lo, hi], by inverse-CDF sampling."""
+    cdf_lo = 0.5 * (1.0 + math.erf(lo / math.sqrt(2.0)))
+    cdf_hi = 0.5 * (1.0 + math.erf(hi / math.sqrt(2.0)))
+    u = torch.empty(shape, dtype=torch.float32, device=device)
+    u.uniform_(2.0 * cdf_lo - 1.0, 2.0 * cdf_hi - 1.0, generator=generator)
+    return u.erfinv_().mul_(math.sqrt(2.0)).clamp_(lo, hi)
+
+
+def dense_init(d_in: int, d_out: int, dtype=torch.float32, *, device,
+               generator: Optional[torch.Generator] = None,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated-normal fan-in init, ``[d_in, d_out]`` for ``x @ W``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(d_in)
+    w = _truncated_normal((d_in, d_out), -2.0, 2.0, device=device,
+                          generator=generator)
+    return w.mul_(scale).to(dtype)
+
+
+def embed_init(vocab: int, d: int, dtype=torch.float32, *, device,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    # 1/sqrt(d) scale keeps tied unembedding logits O(1)
+    w = torch.empty((vocab, d), dtype=torch.float32, device=device)
+    w.normal_(generator=generator)
+    return w.div_(math.sqrt(d)).to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# norms
+# --------------------------------------------------------------------- #
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, *, device) -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# activations
+# --------------------------------------------------------------------- #
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
+
+
+# --------------------------------------------------------------------- #
+# RoPE
+# --------------------------------------------------------------------- #
+
+
+def rope_freqs(head_dim: int, theta: float, *, device) -> torch.Tensor:
+    """Inverse frequencies, shape [head_dim // 2]."""
+    ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (ar / head_dim))
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [...]: int -> cos/sin [..., head_dim // 2] (fp32)."""
+    inv = rope_freqs(head_dim, theta, device=positions.device)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [..., n_heads, head_dim]; cos/sin broadcast [..., 1, head_dim//2].
+
+    Split-halves convention (llama): rotate (x1, x2) halves, in fp32,
+    then cast back to x's type.
+    """
+    dtype = x.dtype
+    x = x.float()
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dtype)
