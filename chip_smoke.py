@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""On-card smoke of the PyTorch port: paged serving of StarCoder2-15B at
-full width on one NVIDIA GPU, through the hand-written flash-decode kernel.
+"""On-card smoke of the PyTorch port on one NVIDIA GPU: paged serving of
+StarCoder2-15B at full width through the hand-written flash-decode kernel,
+and Hier-AVG training of ResNet-18 at full width with a sparse top-k
+global reduction through the hand-written top-k kernel.
 
   python3 chip_smoke.py            # from the root of a checkout, one card
 
 Phases (each prints one line of numbers; any failure exits non-zero):
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions
-  2. build    nvcc builds csrc/flash_decode.cu for sm_90a (seconds, ptxas)
-  3. kernel   the kernel against its plain PyTorch version on the card, at
-              small fp32 shapes (three windows, several tiles and pages)
+  2. build    nvcc builds csrc/flash_decode.cu and csrc/topk_compress.cu
+              for sm_90a, both at once (seconds, ptxas)
+  3. kernel   flash_decode against its plain PyTorch version on the card,
+              at small fp32 shapes (three windows, several tiles and pages)
               and at the serving shape in fp32 and in bf16, with the
               kernel's, the plain version's and SDPA's times and the bound
   4. serve    starcoder2-15b at full width, bf16 random weights from seed 0,
@@ -21,17 +24,36 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               with the plain version at 10, 20 and 40 layers; at 40 they
               agree within LOGIT_REL_TOL * max|logit|, and two controls with
               a wrong window must not
+  6. topk     topk_compress against its plain version, bit for bit in
+              values and indices: 16 fp32 rows at every leaf size of
+              ResNet-18 (k at ratio 0.05), k = 1, k = n, bf16 ties, an
+              all-zero row, +-1 with a 1e8 outlier, signed zeros,
+              subnormals, and 2 rows of 2^24 + 3; then the time of one
+              global fire (55 leaves, L2 flushed before each launch) for
+              the kernel, the plain version and torch.topk, with the bound
+  7. train    Simulator: ResNet-18 at width 64 (11,172,160 params per
+              learner, fp32), P = 16 learners as (1, 4, 4), plan
+              local@2/global@8:topk:0.05 per leaf, sgd(0.1), 32 examples
+              per learner per step of the seeded Gaussian-mixture task as
+              32x32x3 images, 3 rounds: per-round losses, walls, peak
+              memory, and 165 top-k launches (55 leaves x 3 fires); then
+              2 rounds from one converted state with the kernel and with
+              the plain top-k, which must agree bit for bit; then one
+              profiled round by kernel class, idle share against an
+              unprofiled round's wall
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gzip
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -49,6 +71,11 @@ BF16_ULPS = 2.0
 # 1.399e-2 on an H100; plain with the window one page short reads 1.866e-2
 # against plain, so the limit sits between them (PERF.md, Findings)
 LOGIT_REL_TOL = 1.6e-2
+SOURCES = ("flash_decode", "topk_compress")
+TOPK_RATIO = 0.05
+TOPK_ROWS = 16                      # P = 16 learners: one row each
+TRAIN_PLAN = "local@2/global@8:topk:0.05"
+TRAIN_ROUNDS = 3
 
 
 def fail(msg: str) -> None:
@@ -448,6 +475,356 @@ def phase_logits(torch, np, cfg, params, engine):
           + " ".join(f"{k}={v:.4e}" for k, v in controls.items()))
 
 
+# --------------------------------------------------------------------- #
+# phase 6: topk_compress against plain
+
+
+def resnet18_leaf_sizes(torch):
+    """Per-learner sizes of ResNet-18's 55 leaves at width 64, in the
+    reference's leaf order (shapes only, on the meta device)."""
+    from repro_torch.configs.resnet18_cifar import CNNConfig
+    from repro_torch.models.resnet import resnet_init
+    from repro_torch.tree import leaves
+    return [p.numel() for p in leaves(
+        resnet_init(None, CNNConfig(width=64), device="meta"))]
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (so -0.0 differs from +0.0)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+def phase_topk(torch):
+    from repro_torch.comm.sparse import TopKReducer
+    from repro_torch.kernels import ops as kops
+    k_for = TopKReducer(TOPK_RATIO).k_for
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def randn(rows, n):
+        return torch.randn((rows, n), generator=gen, device="cuda")
+
+    sizes = resnet18_leaf_sizes(torch)
+    cases = [(f"fp32 n{n}", randn(TOPK_ROWS, n), k_for(n))
+             for n in sorted(set(sizes))]
+    cases += [("k=1", randn(TOPK_ROWS, 5120), 1),
+              ("k=n", randn(TOPK_ROWS, 5120), 5120),
+              ("bf16 ties", (randn(TOPK_ROWS, 36864) * 2).round()
+               .to(torch.bfloat16), k_for(36864)),
+              ("all zero", torch.zeros((TOPK_ROWS, 8192), device="cuda"),
+               k_for(8192))]
+    ones = torch.sign(randn(TOPK_ROWS, 73728))
+    ones[:, 40000] = 1e8
+    cases.append(("+-1 and 1e8", ones, k_for(73728)))
+    signed = torch.where(torch.rand((TOPK_ROWS, 5120), generator=gen,
+                                    device="cuda") < 0.5, -0.0, 0.0)
+    signed[:, ::9] = -torch.rand((TOPK_ROWS, len(range(0, 5120, 9))),
+                                 generator=gen, device="cuda") - 0.5
+    cases.append(("negatives and -0.0", signed, 700))
+    cases.append(("subnormals", randn(TOPK_ROWS, 5120) * 1e-40, 256))
+    big_n = 2 ** 24 + 3
+    big = randn(2, big_n)
+    big[:, 2 ** 24 + 1] = 1e3              # past 2^24: an fp32 index rounds
+    cases.append(("rows 2 n 2^24+3", big, k_for(big_n)))
+    t0 = time.perf_counter()
+    worst = 0.0
+    for label, x, k in cases:
+        v, i = kops.topk_compress(x, k, impl="kernel")
+        vp, ip = kops.topk_compress(x, k, impl="plain")
+        torch.cuda.synchronize()
+        if not torch.equal(i, ip):
+            bad = (i != ip).nonzero()[:4].tolist()
+            fail(f"topk {label} (rows {x.shape[0]} n {x.shape[1]} k {k}): "
+                 f"indices differ from the plain version at {bad}")
+        if not same_bits(torch, v, vp):
+            fail(f"topk {label}: values differ from the plain version "
+                 f"in their bits")
+        worst = max(worst, (v.float() - vp.float()).abs().max().item())
+    if int(cases[-1][1].shape[1]) != big_n or \
+            2 ** 24 + 1 not in i[0].tolist():
+        fail("topk: the row past 2^24 did not select its outlier there")
+    check_s = time.perf_counter() - t0
+    del cases, big, ones, signed, v, i, vp, ip
+
+    # one global fire: the 55 leaves of ResNet-18, 16 learner rows each
+    fire = [(randn(TOPK_ROWS, n), k_for(n)) for n in sizes]
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def fire_ms(fn, reps):
+        fn(*fire[0])
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(reps):
+            for x, k in fire:
+                total += time_ms(torch, lambda: fn(x, k), flush, 1)
+        return total / reps
+
+    ms = fire_ms(lambda x, k: kops.topk_compress(x, k, impl="kernel"), 5)
+    plain_ms = fire_ms(lambda x, k: kops.topk_compress(x, k, impl="plain"),
+                       2)
+    library_ms = fire_ms(lambda x, k: torch.topk(x.abs(), k, sorted=False),
+                         5)
+    nbytes = sum(x.numel() * x.element_size() + k * x.shape[0] * (
+        x.element_size() + 4) for x, k in fire)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 6 topk: the {len(set(sizes))} leaf sizes of ResNet-18 "
+          f"checked bit for bit at rows {TOPK_ROWS}, plus k=1, k=n, "
+          f"bf16 ties, all zero, +-1 and 1e8, negatives and -0.0, "
+          f"subnormals, rows 2 n 2^24+3 in {check_s:.2f}s: "
+          f"max_abs_err={worst:.3e}; one global fire ({len(fire)} launches, "
+          f"L2 flushed before each): ms={ms:.4f} "
+          f"ms_per_launch={ms / len(fire):.4f} plain_ms={plain_ms:.4f} "
+          f"torch_topk_ms={library_ms:.4f} (torch.topk(|x|, k, "
+          f"sorted=False) leaves the tie order unspecified) "
+          f"bound_ms={bound_ms:.4f} (bytes, {nbytes} B)")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes"}
+
+
+# --------------------------------------------------------------------- #
+# phase 7: full-width Hier-AVG training
+
+
+def trace_kernels(prof, path):
+    """The device kernels of a torch.profiler run, from its Chrome trace:
+    (name, start us, duration us, stream) each."""
+    prof.export_chrome_trace(path)
+    with gzip.open(path, "rt") as f:
+        events = json.load(f).get("traceEvents", [])
+    return [(e["name"], float(e["ts"]), float(e["dur"]),
+             e.get("args", {}).get("stream"))
+            for e in events
+            if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"]
+
+
+def busy_us(kernels) -> float:
+    """Time at least one kernel ran: the union of their intervals."""
+    total, end = 0.0, -1.0
+    for _, ts, dur, _ in sorted(kernels, key=lambda k: k[1]):
+        if ts + dur > end:
+            total += ts + dur - max(ts, end)
+            end = ts + dur
+    return total
+
+
+TRAIN_CLASSES = (
+    ("topk_compress", ("topk_",)),
+    ("conv_backward", ("dgrad", "wgrad")),
+    ("conv_forward", ("fprop",)),
+    ("cudnn_transpose", ("transpose",)),
+    ("cudnn_other", ("cudnn", "xmma", "implicit", "winograd", "fft")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("reduce", ("reduce",)),
+)
+
+
+def by_class(kernels, classes):
+    """Summed kernel time per class (first matching substring wins)."""
+    by = {name: 0.0 for name, _ in classes}
+    by["other"] = 0.0
+    for name, _, dur, _ in kernels:
+        low = name.lower()
+        for cls, keys in classes:
+            if any(k in low for k in keys):
+                by[cls] += dur
+                break
+        else:
+            by["other"] += dur
+    return by
+
+
+def phase_train(torch):
+    import dataclasses
+
+    from repro_torch.comm import reduce_with
+    from repro_torch.comm.sparse import TopKReducer
+    from repro_torch.configs.base import HierAvgParams
+    from repro_torch.configs.resnet18_cifar import CNNConfig
+    from repro_torch.convert import train_state_from_jax, train_state_to_numpy
+    from repro_torch.core.hier_avg import make_hier_round, make_sgd_step
+    from repro_torch.core.plan import ReductionPlan
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.core.topology import HierTopology, average_over
+    from repro_torch.data.synthetic import make_classification_task
+    from repro_torch.kernels.topk_compress import topk_compress as tk
+    from repro_torch.models.resnet import resnet_init, resnet_loss
+    from repro_torch.optim import sgd
+    from repro_torch.tree import leaves
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = CNNConfig(width=64)
+    topo = HierTopology(1, 4, 4)
+    hier = HierAvgParams(plan=TRAIN_PLAN, bucket_bytes=0)
+    task = make_classification_task(32 * 32 * 3, cfg.n_classes,
+                                    device="cuda")
+
+    def sample(gen, n):
+        b = task(gen, n)
+        return {"x": b["x"].reshape(n, 32, 32, 3), "y": b["y"]}
+
+    def loss_fn(p, b):
+        return resnet_loss(p, b, cfg)
+
+    eval_batch = sample(torch.Generator(device="cuda").manual_seed(1), 512)
+    sim = Simulator(loss_fn, lambda g: resnet_init(g, cfg, device="cuda"),
+                    sample, topo=topo, hier=hier, optimizer=sgd(0.1),
+                    per_learner_batch=32, eval_batch=eval_batch, seed=0,
+                    device="cuda")
+    walls = []
+    round_fn = sim.round_fn
+
+    def timed_round(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = round_fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    sim.round_fn = timed_round
+    torch.cuda.reset_peak_memory_stats()
+    tk.launches = 0
+    t0 = time.perf_counter()
+    res = sim.run(TRAIN_ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = tk.launches
+    n_leaves = len(leaves(res.state.params))
+    n_params = sum(p[0, 0, 0].numel() for p in leaves(res.state.params))
+    if launches != n_leaves * TRAIN_ROUNDS:
+        fail(f"topk_compress launches {launches} != {n_leaves} leaves x "
+             f"{TRAIN_ROUNDS} global fires")
+    for name in ("losses", "eval_losses", "eval_accs", "grad_sq_norms"):
+        if not np_isfinite(getattr(res, name)):
+            fail(f"training {name} not finite: {getattr(res, name)}")
+    if not res.eval_losses[-1] < res.eval_losses[0]:
+        fail(f"eval loss did not fall: {res.eval_losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the parts of a round, each across a synchronize: one SGD step on all
+    # learners, one local mean, one global top-k reduction
+    round_batch = sim._round_batch(torch.Generator(device="cuda")
+                                   .manual_seed(7))
+    step_batch = {k: v[0, 0] for k, v in round_batch.items()}
+    step = make_sgd_step(loss_fn, sgd(0.1))
+    plan = ReductionPlan.parse(TRAIN_PLAN)
+    red = plan.levels[-1].reducer
+
+    def wall_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    step_ms = wall_ms(lambda: step(res.state, step_batch))
+    local_ms = wall_ms(lambda: average_over(res.state.params, (2,)))
+    global_ms = wall_ms(lambda: reduce_with(
+        red, lambda t, cf=None: average_over(t, (0, 1, 2)),
+        res.state.params, res.state.comm_state["global"]))
+    print(f"phase 7 train resnet18 width 64 ({n_params} params per learner, "
+          f"{n_leaves} leaves) P={topo.n_learners} {topo.shape} plan "
+          f"{sim.plan.describe()} sgd(0.1) 32 per learner per step: "
+          f"rounds={TRAIN_ROUNDS} in {run_s:.2f}s train_loss="
+          f"{fmt(res.losses)} eval_loss={fmt(res.eval_losses)} eval_acc="
+          f"{fmt(res.eval_accs)} round_wall_ms={fmt(walls)} "
+          f"step_wall_ms={step_ms:.3f} local_mean_ms={local_ms:.3f} "
+          f"global_topk_reduction_ms={global_ms:.3f} peak_mem_gib="
+          f"{peak:.2f} topk_launches={launches}")
+
+    # kernel against plain, through the whole trainer: 2 rounds from one
+    # converted state on the same batches
+    np_state = train_state_to_numpy(res.state)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batches = [sim._round_batch(gen) for _ in range(2)]
+    plain_plan = ReductionPlan(plan.levels[:-1] + (dataclasses.replace(
+        plan.levels[-1], reducer=TopKReducer(TOPK_RATIO, impl="plain")),))
+    runs = {}
+    for impl, p in (("kernel", plan), ("plain", plain_plan)):
+        rnd = make_hier_round(loss_fn, sgd(0.1), hier, plan=p)
+        state = train_state_from_jax(np_state, device="cuda")
+        losses = []
+        for b in batches:
+            state, m = rnd(state, b)
+            losses.append(m["loss"])
+        runs[impl] = (state, torch.stack(losses))
+        del state
+    (sk, lk), (sp, lp) = runs["kernel"], runs["plain"]
+    ef_k, ef_p = sk.comm_state["global"], sp.comm_state["global"]
+    pairs = (list(zip(leaves(sk.params), leaves(sp.params)))
+             + list(zip(leaves(ef_k.err), leaves(ef_p.err)))
+             + list(zip(leaves(ef_k.ref), leaves(ef_p.ref))))
+    differ = sum(not same_bits(torch, a, b) for a, b in pairs)
+    if differ or not same_bits(torch, lk, lp):
+        fail(f"kernel and plain top-k trajectories differ: {differ} of "
+             f"{len(pairs)} params/err/ref leaves, losses {lk.tolist()} vs "
+             f"{lp.tolist()}")
+    print(f"phase 7 kernel vs plain top-k: 2 rounds from one converted "
+          f"state, {len(pairs)} params/err/ref leaves and the losses "
+          f"{fmt(lk.tolist())} bit-identical")
+    del runs, sk, sp, ef_k, ef_p, pairs, np_state
+
+    # where a round's device time goes; idle share against the wall of an
+    # unprofiled round
+    from torch.profiler import ProfilerActivity, profile
+    state = res.state
+    batch = batches[0]
+    rnd = make_hier_round(loss_fn, sgd(0.1), hier)
+    rnd(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rnd(state, batch)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rnd(state, batch)
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels = trace_kernels(prof, os.path.join(tmp, "round.json.gz"))
+    if not kernels:
+        print("phase 7 profile: the profiler saw no device time "
+              "(device breakdown not measured)")
+        return launches
+    busy = busy_us(kernels)
+    by = by_class(kernels, TRAIN_CLASSES)
+    summed = sum(by.values())
+    streams = sorted({str(k[3]) for k in kernels})
+    print(f"phase 7 profile (one round, 8 steps + 4 local means + 1 global "
+          f"top-k; {len(kernels)} kernels on streams {streams}): "
+          f"wall_ms={wall_us / 1e3:.3f} profiled_wall_ms="
+          f"{prof_wall_us / 1e3:.3f} device_busy_ms={busy / 1e3:.3f} "
+          f"kernel_sum_ms={summed / 1e3:.3f} idle_share="
+          f"{1 - busy / wall_us:.3f} "
+          + " ".join(f"{k}_ms={v / 1e3:.3f} ({v / summed:.3f})"
+                     for k, v in by.items()))
+    totals = {}
+    for name, _, dur, _ in kernels:
+        totals[name] = totals.get(name, 0.0) + dur
+    top = sorted(((v, k) for k, v in totals.items()), reverse=True)[:8]
+    print("phase 7 top device kernels (ms per round): " + " | ".join(
+        f"{k[:70]} {v / 1e3:.3f}" for v, k in top))
+    return launches
+
+
+def np_isfinite(a) -> bool:
+    import numpy as np
+    return bool(np.isfinite(np.asarray(a)).all())
+
+
+def fmt(xs) -> str:
+    return "[" + ",".join(f"{float(x):.4f}" for x in xs) + "]"
+
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -465,15 +842,19 @@ def main() -> None:
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {name} x{torch.cuda.device_count()}")
 
-    # phase 2: build (every source at once; one so far)
+    # phase 2: build (every source at once, one nvcc each)
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build("flash_decode")
+    _build.build_all(SOURCES)
     build_s = time.perf_counter() - t0
-    log = _build.BUILD_LOG.get("flash_decode", (0.0, "(cached build)"))[1]
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    print(f"phase 2 build: flash_decode.cu in {build_s:.2f}s; "
-          f"{len(ptxas)} instantiations; " + " | ".join(ptxas[:4]))
+    parts = []
+    for src in SOURCES:
+        secs, log = _build.BUILD_LOG.get(src, (0.0, "(cached build)"))
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        parts.append(f"{src}.cu {secs:.2f}s, {len(ptxas)} kernels: "
+                     + " | ".join(ptxas[:3]))
+    print(f"phase 2 build: {len(SOURCES)} sources in {build_s:.2f}s; "
+          + "; ".join(parts))
 
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
@@ -481,12 +862,21 @@ def main() -> None:
     cfg, _, params, engine, launches = phase_serve(torch, np)
     phase_profile(torch, np, cfg, params, engine)
     phase_logits(torch, np, cfg, params, engine)
+    del cfg, params, engine, _
+    torch.cuda.empty_cache()
+
+    topk = phase_topk(torch)
+    topk_launches = phase_train(torch)
 
     record = {"kernels": [{
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:45",
-        "launches": launches, **kern}]}
+        "launches": launches, **kern}, {
+        "name": "topk_compress", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk_compress.cu",
+        "replaces": "src/repro/kernels/topk_compress.py:175",
+        "launches": topk_launches, **topk}]}
     print(smi_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

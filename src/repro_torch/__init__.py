@@ -4,5 +4,7 @@ It mirrors the JAX package's module paths and function names, imports
 nothing of JAX or of ``repro``, and runs its entry points on ``cuda``
 unless the caller asks for ``device="cpu"``.  Ported so far: paged serving
 of the dense GQA decoders (``launch/serve.py --paged``) with a hand-written
-flash-decode kernel for Hopper.
+flash-decode kernel for Hopper, and the Hier-AVG trainer
+(``core/simulator.py::Simulator``) with a per-leaf top-k global reduction
+through a hand-written top-k kernel.
 """

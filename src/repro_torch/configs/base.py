@@ -12,9 +12,9 @@ import json
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
-# the reference defines this in repro/comm/bucket.py, whose import pulls
-# in jax; the port keeps its own copy of the constant
-DEFAULT_BUCKET_BYTES = 4 << 20
+# the one definition of the default bucket cap in the port (no circular
+# import: comm/ never imports configs/)
+from repro_torch.comm import DEFAULT_BUCKET_BYTES
 
 
 @dataclass(frozen=True)
@@ -99,19 +99,51 @@ class HierAvgParams:
             raise ValueError(
                 f"bucket_bytes must be >= 0, got {self.bucket_bytes}")
         if self.plan is not None:
-            raise NotImplementedError(
-                "reduction plans (core/plan.py) are not ported yet: "
-                "ROADMAP Queue 1 item 1")
+            # lazy import: core.plan owns parsing; this validates level
+            # names, reducer specs, and period/axes nesting at build time
+            from repro_torch.core.plan import ReductionPlan
+            p = ReductionPlan.parse(self.plan)
+            # back-fill the legacy knobs so k1/k2-reading code stays
+            # meaningful
+            object.__setattr__(self, "k1", p.levels[0].period)
+            object.__setattr__(self, "k2", p.total_period)
+            self.resolved_plan      # refuses a plan that needs bucketing
+            return
         if self.k1 < 1 or self.k2 < self.k1:
             raise ValueError(f"need 1 <= K1 <= K2, got K1={self.k1} K2={self.k2}")
         if self.k2 % self.k1 != 0:
             raise ValueError(f"K2 ({self.k2}) must be a multiple of K1 ({self.k1})")
-        # the reducer spec is validated by comm/__init__.py::get_reducer,
-        # which arrives with the sparse-reduction slice (ROADMAP Queue 1)
+        # lazy import: comm owns spec parsing; resolving (and discarding)
+        # the reducer validates family AND arguments at config-build time
+        from repro_torch.comm import get_reducer
+        get_reducer(self.reducer)
+        # the bucket engine is not ported (ROADMAP Queue 1 item 3): a
+        # config whose compressed levels the reference would bucket is
+        # refused here, at build time
+        self.resolved_plan
 
     @property
     def beta(self) -> int:
         return self.k2 // self.k1
+
+    @property
+    def resolved_plan(self):
+        """The ReductionPlan this config describes (parsed fresh), through
+        ``bucket_bytes`` bucketing — identical to what
+        ``resolve_plan(self)`` gives the round builders, so comm state
+        initialized from it always matches."""
+        from repro_torch.core.plan import ReductionPlan, apply_bucketing
+        if self.plan is not None:
+            p = ReductionPlan.parse(self.plan)
+        else:
+            p = ReductionPlan.from_k1_k2(self.k1, self.k2, self.reducer)
+        return apply_bucketing(p, self.bucket_bytes, self.overlap)
+
+    @property
+    def batch_dims(self) -> Tuple[int, ...]:
+        """Leading round-batch dims (outermost ratio first); the 2-level
+        plan gives the familiar (beta, k1)."""
+        return self.resolved_plan.batch_dims
 
     @property
     def steps_per_round(self) -> int:

@@ -1,11 +1,18 @@
-"""Carry the reference's parameters across to the port.
+"""Carry the reference's parameters and training state across to the port.
 
 ``params_from_jax(np_params, cfg)`` takes the JAX package's parameter
 pytree as a nested dict of numpy arrays (``jax.tree.map(np.asarray,
 params)``) and returns a state dict for the port's model
 (``repro_torch/models/transformer.py::DecoderLM``).  Stacked ``[L, ...]``
 layer leaves are split per layer (``layers/attn/wq`` row ``i`` becomes
-``layers.<i>.attn.wq``); values are copied exactly, bf16 included.
+``layers.<i>.attn.wq``).
+
+``tree_from_numpy`` converts any nested dict/list tree of numpy arrays
+(the ResNet and MLP classifier params) leaf by leaf, keeping its
+structure; ``train_state_from_jax`` carries a whole Hier-AVG
+``TrainState`` (params, optimizer state, step and the per-level
+error-feedback state) across, and ``train_state_to_numpy`` brings one
+back.  Values are copied exactly, bf16 included.
 """
 from __future__ import annotations
 
@@ -14,7 +21,9 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
+from repro_torch.comm.sparse import EFState
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.hier_avg import TrainState
 from repro_torch.models.transformer import unsupported_reason
 
 
@@ -24,6 +33,66 @@ def _to_tensor(a: Any, device) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def tree_from_numpy(tree: Any, *, device="cuda", path: str = "") -> Any:
+    """A nested dict/list/tuple tree of numpy arrays (or numbers) -> the
+    same tree of tensors on ``device``; dicts come back with sorted keys,
+    the reference's leaf order.  ``None`` and ``()`` stay as they are."""
+    if isinstance(tree, Mapping):
+        return {k: tree_from_numpy(tree[k], device=device,
+                                   path=f"{path}{k}.")
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_from_numpy(v, device=device, path=f"{path}{i}.")
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    if tree is None:
+        return None
+    try:
+        return _to_tensor(tree, device)
+    except TypeError as e:
+        raise TypeError(f"leaf {path.rstrip('.') or '<root>'}: {e}") from e
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """Inverse of :func:`tree_from_numpy` (tuples and named tuples kept)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_to_numpy(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to_numpy(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        out = [tree_to_numpy(v) for v in tree]
+        return out if isinstance(tree, list) else tuple(out)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy().copy()
+    return tree
+
+
+def train_state_from_jax(np_state: Any, *, device="cuda") -> TrainState:
+    """The reference's ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) -> the port's.  Its
+    ``comm_state`` is ``()`` or ``{level: EFState(ref, err, key)}``; the
+    PRNG key, which top-k never reads, becomes the port's placeholder."""
+    cs = np_state.comm_state
+    comm = () if not cs else {
+        name: EFState(ref=tree_from_numpy(ef.ref, device=device),
+                      err=tree_from_numpy(ef.err, device=device))
+        for name, ef in sorted(cs.items())}
+    return TrainState(
+        params=tree_from_numpy(np_state.params, device=device),
+        opt_state=tree_from_numpy(np_state.opt_state, device=device),
+        step=int(np.asarray(np_state.step)), comm_state=comm)
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """The port's ``TrainState`` with numpy leaves and an int32 step, in
+    the reference's layout (for comparison, or to carry a state back into
+    :func:`train_state_from_jax`)."""
+    return TrainState(params=tree_to_numpy(state.params),
+                      opt_state=tree_to_numpy(state.opt_state),
+                      step=np.int32(state.step),
+                      comm_state=tree_to_numpy(state.comm_state))
 
 
 def _leaves(tree: Mapping[str, Any], prefix: str = ""

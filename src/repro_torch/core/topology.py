@@ -1,0 +1,173 @@
+"""Learner topology for Hier-AVG (PyTorch port of
+``repro/core/topology.py``).
+
+The paper's communicators:
+  * P  learners total
+  * clusters of S learners each do the *local* reduction
+  * all P learners do the *global* reduction
+
+A learner is a coordinate on the (pod, group, local) axes; ``local`` has
+size S, ``group`` counts clusters per pod, and ``pod`` counts pods.  All
+parameter / optimizer-state leaves carry these three leading axes (the
+*stacked-learner* layout), so:
+
+  local  reduction == mean over the ``local``  array axis (index 2)
+  global reduction == mean over ``pod, group, local`` (indices 0, 1, 2)
+
+On one card every reduction is a tensor mean over those axes.  The
+explicit reduce-scatter + all-gather lowering of the reference
+(``_scatter_mean``, its ``bucket_specs``) belongs to the multi-GPU
+hierarchy, ROADMAP Queue 1 item 7, and raises here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from repro_torch.tree import tree_map
+
+AXIS_POD = "pod"
+AXIS_GROUP = "group"
+AXIS_LOCAL = "local"
+
+LEARNER_AXES: Tuple[str, str, str] = (AXIS_POD, AXIS_GROUP, AXIS_LOCAL)
+LOCAL_ARRAY_AXES: Tuple[int, ...] = (2,)
+POD_ARRAY_AXES: Tuple[int, ...] = (1, 2)
+GLOBAL_ARRAY_AXES: Tuple[int, ...] = (0, 1, 2)
+
+
+@dataclass(frozen=True)
+class HierTopology:
+    """(pods, groups, local) learner grid; ``local`` is the paper's S."""
+
+    pods: int = 1
+    groups: int = 1
+    local: int = 1
+
+    def __post_init__(self):
+        if min(self.pods, self.groups, self.local) < 1:
+            raise ValueError(f"every axis needs >= 1 learner, got {self}")
+
+    @property
+    def n_learners(self) -> int:  # the paper's P
+        return self.pods * self.groups * self.local
+
+    @property
+    def s(self) -> int:          # the paper's S
+        return self.local
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return (self.pods, self.groups, self.local)
+
+    # local clusters never span pods: cluster id = (pod, group)
+    @property
+    def n_clusters(self) -> int:
+        return self.pods * self.groups
+
+    def describe(self) -> str:
+        return (f"P={self.n_learners} learners = {self.pods} pod(s) x "
+                f"{self.groups} cluster(s)/pod x S={self.local}")
+
+
+def stack_like(topo: HierTopology, tree):
+    """Replicate a single-learner tree to the stacked layout
+    [pods, G, S, ...] (paper: all learners start from the same w_1).
+
+    The reference's ``broadcast_to`` is a value; here the copy is
+    materialised, because learners update independently and an expanded
+    view would share one buffer among them."""
+    return tree_map(
+        lambda x: x.expand(topo.shape + tuple(x.shape)).clone(), tree)
+
+
+def stack_distinct(topo: HierTopology, init_fn, generator: torch.Generator):
+    """Independent per-learner init (for ablations): ``init_fn(generator)``
+    once per learner, in row-major learner order, stacked."""
+    per = [init_fn(generator) for _ in range(topo.n_learners)]
+    return tree_map(
+        lambda *xs: torch.stack(xs).reshape(topo.shape + tuple(xs[0].shape)),
+        *per)
+
+
+def unstack_first(tree):
+    """Extract learner (0,0,0)'s copy (post-global-average they are equal)."""
+    return tree_map(lambda x: x[0, 0, 0], tree)
+
+
+def _mask_weights(mask: torch.Tensor, ndim: int, dtype) -> torch.Tensor:
+    """The mask as multiplicative weights aligned to an ``ndim``-dim
+    stacked leaf: ``[pods, G, S]`` broadcast over the trailing dims."""
+    w = mask.to(dtype)
+    return w.reshape(tuple(w.shape) + (1,) * (ndim - w.dim()))
+
+
+def average_over(tree, axes: Tuple[int, ...], constraint_fn=None,
+                 bucket_specs=None, mask=None):
+    """Mean over stacked learner axes, broadcast back and materialised
+    (== grouped all-reduce).
+
+    ``mask`` — a boolean ``[pods, G, S]`` participation mask; absent
+    learners contribute weight 0 and the sum renormalizes by the
+    per-group survivor count (a group with no survivors yields 0, never
+    NaN).  At full participation the weights are exactly 1.0 and the
+    counts exactly n.
+
+    ``constraint_fn`` (GSPMD sharding hints) and ``bucket_specs`` (the
+    shard-aware reduce-scatter lowering) belong to the multi-GPU
+    hierarchy, ROADMAP Queue 1 item 7, and raise here.
+    """
+    if constraint_fn is not None or bucket_specs is not None:
+        raise NotImplementedError(
+            "constraint_fn / bucket_specs (sharded reductions) are not "
+            "ported: ROADMAP Queue 1 item 7")
+    axes = tuple(axes)
+
+    def avg(x):
+        if mask is not None:
+            w = _mask_weights(mask, x.dim(), x.dtype)
+            c = torch.sum(w, dim=axes, keepdim=True)
+            s = torch.sum(x * w, dim=axes, keepdim=True)
+            m = s / torch.clamp(c, min=1)     # all-absent group: 0, not NaN
+        else:
+            m = torch.mean(x, dim=axes, keepdim=True)
+        return m.expand_as(x).clone()
+
+    return tree_map(avg, tree)
+
+
+def where_active(mask: torch.Tensor, new_tree, old_tree):
+    """Per-learner select: active learners take ``new_tree``, absent ones
+    keep ``old_tree``.  Leaves carrying the full stacked lead
+    (``shape[:3] == mask.shape``) select per learner; all other leaves
+    take ``new``.  With an all-true mask every leaf is ``new`` exactly."""
+    lead = tuple(mask.shape)
+
+    def sel(new, old):
+        shape = tuple(getattr(new, "shape", ()))
+        if len(shape) >= 3 and shape[:3] == lead:
+            return torch.where(_mask_weights(mask, len(shape), torch.bool),
+                               new, old)
+        return new
+
+    return tree_map(sel, new_tree, old_tree)
+
+
+def local_average(tree, constraint_fn=None, bucket_specs=None, mask=None):
+    """The paper's local reduction: mean within each cluster of S learners."""
+    return average_over(tree, LOCAL_ARRAY_AXES, constraint_fn, bucket_specs,
+                        mask)
+
+
+def global_average(tree, constraint_fn=None, bucket_specs=None, mask=None):
+    """The paper's global reduction: mean over all P learners."""
+    return average_over(tree, GLOBAL_ARRAY_AXES, constraint_fn, bucket_specs,
+                        mask)
+
+
+def pod_average(tree, constraint_fn=None, bucket_specs=None, mask=None):
+    """Beyond-paper: intra-pod reduction (axes group+local, not pod)."""
+    return average_over(tree, POD_ARRAY_AXES, constraint_fn, bucket_specs,
+                        mask)

@@ -17,7 +17,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -51,29 +51,44 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its keyed build exists; returns
     the library path.  Raises with nvcc's output if the build fails."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    # compile to a private name, then rename: concurrent processes never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    return build_all([name])[name]
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that has no keyed
+    build yet, one nvcc process per source, all started together; returns
+    each library's path.  Raises with nvcc's output if a build fails."""
+    paths = {name: library_path(name) for name in names}
+    started = {}
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        for name, out in paths.items():
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # compile to a private name, then rename: concurrent processes
+            # never load a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            started[name] = (tmp, time.perf_counter(), proc)
+        for name, (tmp, t0, proc) in started.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):"
+                    f"\n{log}")
+            os.replace(tmp, paths[name])
+            BUILD_LOG[name] = (time.perf_counter() - t0, log)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_LOG[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
-    return out
+        for tmp, _, proc in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return paths
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,7 +13,7 @@ or the call raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,3 +44,22 @@ def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     from repro_torch.kernels.flash_decode import flash_decode as fd
     return fd(q, k_pages, v_pages, block_tables, lengths, window=window,
               scale=scale)
+
+
+def topk_compress(x: torch.Tensor, k: int, *, impl: str = "auto"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact per-row magnitude top-k (the sparse reducer's compress step).
+
+    x [rows, n] fp32/bf16 -> (values [rows, k] in x's dtype, indices
+    [rows, k] int32, ascending per row); ties at the k-th magnitude go to
+    the lowest indices.  The kernel's launch count is
+    ``kernels.topk_compress.topk_compress.launches``.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    if impl == "auto":
+        impl = "kernel" if x.is_cuda else "plain"
+    if impl == "plain":
+        return kref.topk_compress_plain(x, k)
+    from repro_torch.kernels.topk_compress import topk_compress as tk
+    return tk(x, k)

@@ -8,7 +8,7 @@ the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,3 +66,20 @@ def flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
     any_valid = valid.any(dim=1)[:, None, None, None]
     out = torch.where(any_valid, out, torch.zeros_like(out))
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def topk_compress_plain(x: torch.Tensor, k: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row magnitude top-k (the sparse reducer's compress step).
+
+    x [rows, n] -> (values [rows, k] in x's dtype, indices [rows, k] int32,
+    ascending per row).  A stable descending sort of |x| in fp32 keeps the
+    first k, so ties at the k-th magnitude go to the lowest indices, as in
+    the reference's ``lax.top_k`` oracle; ``torch.topk`` leaves the tie
+    order unspecified and is not used.  Values are gathered from x, bits
+    and all (subnormals and -0.0 kept).
+    """
+    order = torch.sort(x.float().abs(), dim=-1, descending=True,
+                       stable=True).indices
+    idx = torch.sort(order[:, :k], dim=-1).values
+    return torch.gather(x, 1, idx), idx.to(torch.int32)

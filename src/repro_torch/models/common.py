@@ -11,7 +11,7 @@ Philox differ): parity tests carry the reference's weights across with
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -114,3 +114,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     x1, x2 = x[..., :d2], x[..., d2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# losses
+# --------------------------------------------------------------------- #
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token-level CE, in fp32.  logits [..., V] (any dtype, upcast),
+    labels [...] integer.  Returns (loss, {"loss", "accuracy", "tokens"})."""
+    logits = logits.float()
+    labels = labels.long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    acc = ((torch.argmax(logits, dim=-1) == labels) * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
