@@ -27,11 +27,6 @@ from repro_torch.tree import leaves, tree_map
 
 N_LEARNER_AXES = 3   # [pods, G, S] — the stacked-learner leading axes
 
-# The bucket engine's default cap (``HierAvgParams.bucket_bytes``).  The
-# reference defines it in repro/comm/bucket.py; the port has no bucket
-# engine yet (ROADMAP Queue 1 item 3), so its one definition lives here.
-DEFAULT_BUCKET_BYTES = 4 << 20
-
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32, "float8_e4m3fn": torch.float8_e4m3fn,
            "float8_e5m2": torch.float8_e5m2}
@@ -59,20 +54,47 @@ class Reducer:
 
     name = "mean"
     stateful = False
-    # -- bucketing hints (read by core/plan.py apply_bucketing) ---------- #
-    # would the reference pack this reducer into flat buckets when the
-    # plan's bucket_bytes knob is on?  True for coordinate-wise codecs
-    # (cast / topk); the port has no bucket engine yet, so plan
-    # resolution refuses such a level instead (ROADMAP Queue 1 item 3)
+    # -- bucketing hints (comm/bucket.py, core/plan.py apply_bucketing) -- #
+    # wrap this reducer in the bucket engine automatically when the plan's
+    # bucket_bytes knob is on?  True for coordinate-wise codecs (cast /
+    # topk / randk / qint8); False for the dense mean and for PowerSGD,
+    # which opt in with the ":bucketed" spec modifier
     bucket_by_default = False
     # instance-level opt-out set by the ":perleaf" spec modifier
     bucket_opt_out = False
     # instance-level schedule pin set by the ":serial" spec modifier
     overlap_opt_out = False
+    # does compress/decompress do per-element work?  False for the mean
+    has_codec = False
+    # pack buckets as near-square matrices instead of flat vectors (what a
+    # low-rank codec needs to act on a bucket at all)
+    wants_matrix = False
+
+    @property
+    def codec_name(self) -> str:
+        """Codec family label: the spec name for codec reducers, "" for
+        the identity mean."""
+        return self.name if self.has_codec else ""
 
     # -- carried state -------------------------------------------------- #
     def init_state(self, params) -> Any:
         return ()
+
+    def split_bucket_states(self, state, n: int):
+        """Per-bucket views of the carried state, for the pipelined bucket
+        schedule (comm/bucket.py Pipelined): entry ``i`` is the state
+        ``compress``/``decompress`` need when handed bucket ``i`` alone.
+        ``None`` means the state cannot be split (per-leaf state handed to
+        the bucket engine) and the engine falls back to the serial
+        schedule.  Stateful reducers with per-bucket state override this
+        together with :meth:`join_bucket_states`."""
+        if self.stateful:
+            return None
+        return [() for _ in range(n)]
+
+    def join_bucket_states(self, state, per_bucket):
+        """Inverse of :meth:`split_bucket_states`."""
+        return state
 
     # -- codec ---------------------------------------------------------- #
     def compress(self, tree, state) -> Tuple[Any, Any]:
@@ -84,8 +106,13 @@ class Reducer:
         return payload
 
     def finalize(self, avg_tree, orig_tree, state) -> Tuple[Any, Any]:
-        """Post-reduction hook: restore dtypes / update EF references
-        (from ``avg_tree``; ``orig_tree`` is only a shape/dtype template)."""
+        """Post-reduction hook: restore dtypes / update EF references.
+
+        Contract: ``orig_tree`` is only a shape/dtype template (EF
+        references update from ``avg_tree``).  The bucket engine relies on
+        it: it hands ``finalize`` (and ``decompress``) meta-device
+        templates, and the pipelined schedule finalizes a carried stage
+        with the next bucket, of the same shape, as the template."""
         return avg_tree, state
 
     # -- accounting ----------------------------------------------------- #
@@ -94,6 +121,17 @@ class Reducer:
         tree)."""
         return int(sum(leaf.numel() * leaf.element_size()
                        for leaf in leaves(tree)))
+
+    def wire_payload_bytes(self, tree) -> int:
+        """Bytes one device puts on the wire per reduction: equal to
+        :meth:`payload_bytes` on one card (the shard-aware override is
+        ROADMAP Queue 1 item 7)."""
+        return self.payload_bytes(tree)
+
+    def n_messages(self, tree) -> int:
+        """Grouped collectives one reduction dispatches (single-learner
+        tree): one per leaf; the bucket engine bills one per bucket."""
+        return len(leaves(tree))
 
     def describe(self) -> str:
         """Spec string this reducer round-trips through ``get_reducer``."""
@@ -121,6 +159,7 @@ class CastReducer(Reducer):
 
     name = "cast"
     bucket_by_default = True
+    has_codec = True
 
     def __init__(self, dtype="bfloat16"):
         if isinstance(dtype, str):

@@ -1,6 +1,5 @@
-"""Top-k reducer with error feedback (PyTorch port of the top-k half of
-``repro/comm/sparse.py``; random-k arrives with the other codecs, ROADMAP
-Queue 1 item 2).
+"""Sparse (top-k / random-k) reducers with error feedback (PyTorch port
+of ``repro/comm/sparse.py``).
 
 Each learner transmits only k coordinates of its *delta since the last
 reduction* plus the accumulated error-feedback residual (Stich et al.,
@@ -12,10 +11,11 @@ arXiv:1805.09767):
     xhat_j  = ref_j + dense(payload)
     out     = mean_j xhat_j ; ref <- out     # reference tracks consensus
 
-The per-leaf selection runs ``kernels/ops.py::topk_compress`` — the
-hand-written CUDA kernel for CUDA tensors, the plain version for CPU
-tensors — once per leaf, on ``[pods * G * S, per-learner size]`` rows in
-fp32.
+Top-k runs ``kernels/ops.py::topk_compress`` (the hand-written CUDA
+kernel for CUDA tensors, the plain version for CPU tensors) once per leaf,
+or once per bucket under the bucket engine (comm/bucket.py), on
+``[pods * G * S, n]`` rows in fp32.  Random-k draws one support shared by
+all learners from a ``torch.Generator`` seeded from the carried RNG state.
 """
 from __future__ import annotations
 
@@ -33,8 +33,37 @@ class EFState(NamedTuple):
     """Error-feedback carry, stacked like the params ([pods, G, S, *shape])."""
     ref: Any        # each learner's view of the last reduction result
     err: Any        # untransmitted residual, fp32
-    key: Any = None  # the reference's PRNG key, read only by random-k;
-                     # a placeholder until random-k is ported
+    key: Any = None  # the RNG carry (rng_carry), read by random-k and
+                     # carried by top-k
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def rng_carry(seed: int = 0) -> torch.Tensor:
+    """The port's random-k RNG state: int64 ``[seed, fires, offset]`` on
+    the CPU.  ``fires`` counts the reductions so far; ``offset`` is the
+    index of the state's first leaf (non-zero only for the per-bucket
+    states of the pipelined schedule).  The reference carries a JAX PRNG
+    key instead, which torch cannot reproduce (convert.py maps one to the
+    other)."""
+    return torch.tensor([int(seed), 0, 0], dtype=torch.int64)
+
+
+def _advanced(key: torch.Tensor) -> torch.Tensor:
+    """The carry after one reduction: one more fire, offset 0."""
+    seed, fire, _ = key.tolist()
+    return torch.tensor([seed, fire + 1, 0], dtype=torch.int64)
+
+
+def stream_seed(seed: int, fire: int, index: int) -> int:
+    """A 63-bit generator seed for leaf (or bucket) ``index`` of reduction
+    ``fire`` (splitmix64 of the three)."""
+    z = (seed * 0x9E3779B97F4A7C15 + fire * 0xBF58476D1CE4E5B9
+         + index * 0x94D049BB133111EB + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) & ((1 << 63) - 1)
 
 
 def _rows(leaf) -> int:
@@ -54,10 +83,12 @@ def _scatter_rows(vals: torch.Tensor, idx: torch.Tensor,
 
 
 class _SparseEFReducer(Reducer):
-    """Shared machinery of the error-feedback sparse reducers."""
+    """Shared machinery of top-k / random-k; subclasses pick the support."""
 
     stateful = True
-    # the reference packs these into flat buckets by default
+    has_codec = True
+    # bucketed by default: k-of-the-bucket approximates the global
+    # k-of-the-model selection the EF analyses assume (comm/bucket.py)
     bucket_by_default = True
 
     def __init__(self, ratio: float = 0.1, impl: str = "auto"):
@@ -79,26 +110,50 @@ class _SparseEFReducer(Reducer):
         # ref gets its OWN buffers: an alias of the params would change
         # with every in-place write to them
         ref = tree_map(torch.clone, params)
-        return EFState(ref=ref, err=err, key=None)
+        return EFState(ref=ref, err=err, key=rng_carry())
 
-    def _select(self, delta2d: torch.Tensor, k: int):
+    # -- pipelined bucket schedule (comm/bucket.py Pipelined) ------------ #
+    # Once bucketed, ref/err are lists of bucket tensors, one pair per
+    # bucket.  Bucket i's state carries offset i, so random-k draws from
+    # the stream a serial reduction gives bucket i: pipelined == serial
+    # bit for bit for both codecs (the reference's pipelined random-k
+    # draws from another stream than its serial one).
+
+    def split_bucket_states(self, state: EFState, n: int):
+        refs, errs = leaves(state.ref), leaves(state.err)
+        if len(refs) != n or len(errs) != n:
+            return None                      # not bucket-aligned state
+        seed, fire, _ = state.key.tolist()
+        return [EFState(ref=[refs[i]], err=[errs[i]],
+                        key=torch.tensor([seed, fire, i],
+                                         dtype=torch.int64))
+                for i in range(n)]
+
+    def join_bucket_states(self, state: EFState, per_bucket):
+        return EFState(ref=[s.ref[0] for s in per_bucket],
+                       err=[s.err[0] for s in per_bucket],
+                       key=_advanced(state.key))
+
+    def _select(self, delta2d: torch.Tensor, k: int, stream: int):
         raise NotImplementedError
 
     def compress(self, tree, state: EFState):
+        seed, fire, offset = state.key.tolist()
         flat, treedef = flatten(tree)
         refs = leaves(state.ref)
         errs = leaves(state.err)
         payload, new_errs = [], []
-        for x, r, e in zip(flat, refs, errs):
+        for i, (x, r, e) in enumerate(zip(flat, refs, errs)):
             rows, n = _rows(x), per_learner_size(x)
             delta = (x.float() - r.float()).reshape(rows, n) \
                 + e.reshape(rows, n)
-            vals, idx = self._select(delta, self.k_for(n))
+            vals, idx = self._select(delta, self.k_for(n),
+                                     stream_seed(seed, fire, offset + i))
             new_errs.append(
                 (delta - _scatter_rows(vals, idx, n)).reshape(e.shape))
             payload.append((vals, idx))
         return payload, EFState(state.ref, unflatten(treedef, new_errs),
-                                state.key)
+                                _advanced(state.key))
 
     def decompress(self, payload, like, state: EFState):
         flat, treedef = flatten(like)
@@ -126,9 +181,32 @@ class _SparseEFReducer(Reducer):
 
 
 class TopKReducer(_SparseEFReducer):
-    """Per-leaf magnitude top-k of the EF-corrected delta."""
+    """Per-leaf (or per-bucket) magnitude top-k of the EF-corrected
+    delta."""
 
     name = "topk"
 
-    def _select(self, delta2d, k):
+    def _select(self, delta2d, k, stream):
         return ops.topk_compress(delta2d, k, impl=self.impl)
+
+
+class RandKReducer(_SparseEFReducer):
+    """Random-k with a shared support: all learners transmit the same k
+    coordinates each fire (drawn fresh from the carried RNG state), so the
+    grouped mean of the sparse payloads is itself k-sparse.  Unselected
+    coordinates ride the EF residual into a later fire."""
+
+    name = "randk"
+
+    def support(self, n: int, k: int, stream: int,
+                device) -> torch.Tensor:
+        """k distinct indices of [0, n), ascending, int32: the first k of
+        a permutation drawn from a generator seeded with ``stream``."""
+        g = torch.Generator(device=device).manual_seed(stream)
+        idx = torch.randperm(n, generator=g, device=device)[:k]
+        return torch.sort(idx).values.to(torch.int32)
+
+    def _select(self, delta2d, k, stream):
+        idx = self.support(delta2d.shape[1], k, stream, delta2d.device)
+        idx2d = idx[None, :].expand(delta2d.shape[0], k)
+        return torch.gather(delta2d, 1, idx2d.long()), idx2d

@@ -12,9 +12,9 @@ import json
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
-# the one definition of the default bucket cap in the port (no circular
-# import: comm/ never imports configs/)
-from repro_torch.comm import DEFAULT_BUCKET_BYTES
+# the one definition of the default bucket cap (no circular import: comm/
+# never imports configs/)
+from repro_torch.comm.bucket import DEFAULT_BUCKET_BYTES
 
 
 @dataclass(frozen=True)
@@ -76,13 +76,11 @@ class HierAvgParams:
     ``mean`` is never auto-bucketed, so the default path is unchanged.
 
     ``overlap`` picks the bucket *schedule*: on (default), bucketed
-    levels run the pipelined engine (comm/bucket.py Pipelined) — a
-    double-buffered ``lax.scan`` that issues bucket *i*'s grouped
-    collective before bucket *i+1*'s compress so async-collective
-    backends overlap the two; off (``--no-overlap``) pins the strictly
-    serial compress-then-reduce schedule.  Per-level ``:pipelined`` /
-    ``:serial`` spec modifiers override the knob.  Single-bucket layouts
-    are identical either way.
+    levels run the pipelined engine (comm/bucket.py Pipelined), which
+    issues bucket *i*'s grouped mean before bucket *i+1*'s compress; off
+    pins the strictly serial compress-then-reduce schedule.  Per-level
+    ``:pipelined`` / ``:serial`` spec modifiers override the knob.
+    Single-bucket layouts are identical either way.
     """
 
     k1: int = 4          # innermost (local) averaging interval (SGD steps)
@@ -107,7 +105,6 @@ class HierAvgParams:
             # meaningful
             object.__setattr__(self, "k1", p.levels[0].period)
             object.__setattr__(self, "k2", p.total_period)
-            self.resolved_plan      # refuses a plan that needs bucketing
             return
         if self.k1 < 1 or self.k2 < self.k1:
             raise ValueError(f"need 1 <= K1 <= K2, got K1={self.k1} K2={self.k2}")
@@ -117,10 +114,6 @@ class HierAvgParams:
         # the reducer validates family AND arguments at config-build time
         from repro_torch.comm import get_reducer
         get_reducer(self.reducer)
-        # the bucket engine is not ported (ROADMAP Queue 1 item 3): a
-        # config whose compressed levels the reference would bucket is
-        # refused here, at build time
-        self.resolved_plan
 
     @property
     def beta(self) -> int:

@@ -10,9 +10,10 @@ layer leaves are split per layer (``layers/attn/wq`` row ``i`` becomes
 ``tree_from_numpy`` converts any nested dict/list tree of numpy arrays
 (the ResNet and MLP classifier params) leaf by leaf, keeping its
 structure; ``train_state_from_jax`` carries a whole Hier-AVG
-``TrainState`` (params, optimizer state, step and the per-level
-error-feedback state) across, and ``train_state_to_numpy`` brings one
-back.  Values are copied exactly, bf16 included.
+``TrainState`` (params, optimizer state, step and the per-level reducer
+state: top-k/random-k error feedback, PowerSGD's ref, err and warm-start
+Q, per leaf or in bucket space) across, and ``train_state_to_numpy``
+brings one back.  Values are copied exactly, bf16 included.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-from repro_torch.comm.sparse import EFState
+from repro_torch.comm.lowrank import LowRankState
+from repro_torch.comm.sparse import EFState, rng_carry
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.hier_avg import TrainState
 from repro_torch.models.transformer import unsupported_reason
@@ -69,16 +71,44 @@ def tree_to_numpy(tree: Any) -> Any:
     return tree
 
 
+def rng_carry_from_jax(key: Any) -> torch.Tensor:
+    """The reference's PRNG key (uint32 [2]) -> the port's random-k RNG
+    carry (comm/sparse.py ``rng_carry``): seed = the key's 64 bits (top
+    bit dropped), no fires yet.  The port cannot reproduce JAX's random
+    bits, so the two streams differ from here on; only the carry's shape
+    and its determinism carry over.  A port carry (int64 [3], from
+    :func:`train_state_to_numpy`) is taken as it is."""
+    k = np.asarray(key)
+    if k.dtype == np.int64 and k.shape == (3,):
+        return torch.from_numpy(k.copy())
+    if k.dtype != np.uint32 or k.shape != (2,):
+        raise ValueError(f"not a PRNG key or RNG carry: {k.dtype} {k.shape}")
+    return rng_carry(((int(k[0]) << 32) | int(k[1])) & ((1 << 63) - 1))
+
+
+def reducer_state_from_jax(st: Any, device="cuda") -> Any:
+    """One level's reducer state with numpy leaves -> the port's
+    ``LowRankState`` (it has a ``q``) or ``EFState``."""
+    if "q" in getattr(st, "_fields", ()):
+        return LowRankState(ref=tree_from_numpy(st.ref, device=device),
+                            err=tree_from_numpy(st.err, device=device),
+                            q=tree_from_numpy(st.q, device=device))
+    return EFState(ref=tree_from_numpy(st.ref, device=device),
+                   err=tree_from_numpy(st.err, device=device),
+                   key=rng_carry_from_jax(st.key))
+
+
 def train_state_from_jax(np_state: Any, *, device="cuda") -> TrainState:
     """The reference's ``TrainState`` with numpy leaves
     (``jax.tree.map(np.asarray, state)``) -> the port's.  Its
-    ``comm_state`` is ``()`` or ``{level: EFState(ref, err, key)}``; the
-    PRNG key, which top-k never reads, becomes the port's placeholder."""
+    ``comm_state`` is ``()`` or ``{level: EFState | LowRankState}``, per
+    leaf or in bucket space (lists of bucket arrays); a dense PowerSGD
+    leaf's ``q`` is ``()``.  The PRNG key of ``EFState`` becomes the
+    port's RNG carry (:func:`rng_carry_from_jax`), kept on the CPU."""
     cs = np_state.comm_state
     comm = () if not cs else {
-        name: EFState(ref=tree_from_numpy(ef.ref, device=device),
-                      err=tree_from_numpy(ef.err, device=device))
-        for name, ef in sorted(cs.items())}
+        name: reducer_state_from_jax(st, device)
+        for name, st in sorted(cs.items())}
     return TrainState(
         params=tree_from_numpy(np_state.params, device=device),
         opt_state=tree_from_numpy(np_state.opt_state, device=device),

@@ -64,10 +64,15 @@ def init_state(topo: HierTopology, init_fn, optimizer: Optimizer,
 
     ``plan`` (or legacy ``reducer``) must match what the round/step
     function was built with: stateful reducers carry per-level state in
-    ``comm_state`` keyed by level name.  A ``plan`` given as a spec string,
-    or a bare ``reducer``, goes through the same bucketing check as a
-    default ``HierAvgParams`` (pass ``bucket_bytes=0`` for a per-leaf
-    top-k); a ``ReductionPlan`` instance is taken as resolved.
+    ``comm_state`` keyed by level name, in bucket space for bucketed
+    levels.  A ``plan`` given as a spec string, or a bare ``reducer``,
+    gets the bucketing a default ``HierAvgParams`` resolves to; pass
+    ``bucket_bytes`` (0 = per leaf) and/or ``overlap=False`` when the
+    round uses other values (the pipelined engine pads multi-bucket
+    layouts uniform, so its EF state differs from the serial engine's).
+    A ``ReductionPlan`` instance is taken as resolved unless
+    ``bucket_bytes`` or ``overlap`` is given: an explicit ``overlap``
+    re-chooses the bucket engine.
     """
     params = stack_like(topo, tree_map(lambda x: x.to(device),
                                        init_fn(generator)))

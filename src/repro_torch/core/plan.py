@@ -11,19 +11,17 @@ level — see comm/).  A 3-level plan looks like
     local@4:cast:bfloat16 / pod@8:mean / global@16:topk:0.05:perleaf
 
 Nesting is validated: each level's axes must contain the previous level's,
-and each period must divide the next.
-
-The reference packs compressed levels into flat buckets by default
-(``HierAvgParams.bucket_bytes``); the port has no bucket engine yet
-(ROADMAP Queue 1 item 3), so :func:`apply_bucketing` refuses a level it
-would pack instead of running it per leaf unasked.
+and each period must divide the next.  :func:`apply_bucketing` wraps the
+compressed levels in the bucket engine (comm/bucket.py), as the
+reference's ``HierAvgParams.bucket_bytes`` and ``overlap`` knobs say.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Tuple, Union
 
-from repro_torch.comm import DEFAULT_BUCKET_BYTES, Reducer, get_reducer
+from repro_torch.comm import (DEFAULT_BUCKET_BYTES, Bucketed, Pipelined,
+                              Reducer, get_reducer)
 from repro_torch.core.topology import (GLOBAL_ARRAY_AXES, LOCAL_ARRAY_AXES,
                                        POD_ARRAY_AXES)
 
@@ -209,26 +207,54 @@ class ReductionPlan:
 
 def apply_bucketing(plan: ReductionPlan, bucket_bytes: int,
                     overlap: bool = True, shards=None) -> ReductionPlan:
-    """Where the reference would wrap a level's reducer in its bucket
-    engine — ``bucket_bytes > 0`` and a ``bucket_by_default`` codec (cast,
-    topk) not marked ``:perleaf`` — the port raises: that engine is ROADMAP
-    Queue 1 item 3, and running the level per leaf instead would change
-    its selection (k per leaf, not k per bucket).  Every other plan is
-    returned as it is."""
+    """Wrap each level's reducer in a bucket engine (comm/bucket.py):
+    :class:`~repro_torch.comm.Pipelined` when ``overlap`` is on, plain
+    :class:`~repro_torch.comm.Bucketed` (serial) otherwise.
+
+    Per level: reducers marked ``:perleaf`` stay per leaf;
+    ``bucket_by_default`` codecs (cast / topk / randk / qint8) are wrapped
+    when ``bucket_bytes > 0``; reducers already wrapped (``:bucketed``)
+    keep their wrapper and inherit this cap unless built with their own.
+    The dense mean and PowerSGD stay per leaf unless marked.  An explicit
+    ``:pipelined`` stays pipelined with ``overlap=False`` and a
+    ``:serial`` pin stays serial with ``overlap=True``; a wrapper that an
+    earlier resolution chose follows the current ``overlap``.  ``shards``
+    (fsdp layouts) is ROADMAP Queue 1 item 7 and raises.
+    """
     if shards is not None:
         raise NotImplementedError(
             "sharded bucket layouts are not ported yet: ROADMAP Queue 1 "
             "item 7")
+    levels, changed = [], False
     for lvl in plan.levels:
         r = lvl.reducer
-        if bucket_bytes and bucket_bytes > 0 and r.bucket_by_default \
-                and not r.bucket_opt_out:
-            raise NotImplementedError(
-                f"level {lvl.describe()!r} would be packed into "
-                f"{bucket_bytes}-byte buckets, and the bucket engine is not "
-                f"ported yet (ROADMAP Queue 1 item 3): pass bucket_bytes=0 "
-                f"or mark the reducer ':perleaf' to run it per leaf")
-    return plan
+        new = r
+        if isinstance(r, Bucketed):
+            if isinstance(r, Pipelined) and r.pipeline_pin:
+                engine = Pipelined           # explicit :pipelined wins
+            elif r.overlap_opt_out or r.inner.overlap_opt_out:
+                engine = Bucketed            # explicit :serial pin
+            else:
+                engine = Pipelined if overlap else Bucketed
+            cap = r.bucket_bytes
+            if (cap is None and bucket_bytes and bucket_bytes > 0
+                    and bucket_bytes != r.effective_bucket_bytes):
+                cap = bucket_bytes
+            if type(r) is not engine or cap != r.bucket_bytes:
+                new = engine(r.inner, cap)
+                new.overlap_opt_out = r.overlap_opt_out
+                new.pipeline_pin = r.pipeline_pin
+        elif (bucket_bytes and bucket_bytes > 0
+                and r.bucket_by_default and not r.bucket_opt_out):
+            engine = Pipelined if (overlap and not r.overlap_opt_out) \
+                else Bucketed
+            # a ':serial' pin stays visible as new.inner.overlap_opt_out
+            new = engine(r, bucket_bytes)
+        if new is not r:
+            lvl = replace(lvl, reducer=new)
+            changed = True
+        levels.append(lvl)
+    return ReductionPlan(tuple(levels)) if changed else plan
 
 
 def apply_shards(plan: ReductionPlan, shards) -> ReductionPlan:
@@ -248,9 +274,10 @@ def resolve_plan(hier, reducer=None, plan: PlanLike = None,
     Precedence: explicit ``plan`` argument (instance or spec string), then
     ``hier.plan``, then the legacy 2-level plan from ``hier.k1``/``hier.k2``.
     An explicit ``reducer`` (spec or instance) overrides the reducer of
-    EVERY level.  Finally ``hier.bucket_bytes`` goes through
-    :func:`apply_bucketing`, which refuses a level the reference would
-    bucket.
+    EVERY level.  Finally ``hier.bucket_bytes`` buckets the compressed
+    levels (:func:`apply_bucketing`), on the pipelined schedule unless
+    ``hier.overlap`` is off, so round builders, state init and payload
+    accounting agree on the packed layout.
     """
     if plan is None:
         plan = getattr(hier, "plan", None)

@@ -14,7 +14,8 @@ parameter / optimizer-state leaves carry these three leading axes (the
   local  reduction == mean over the ``local``  array axis (index 2)
   global reduction == mean over ``pod, group, local`` (indices 0, 1, 2)
 
-On one card every reduction is a tensor mean over those axes.  The
+On one card every reduction is a tensor mean over those axes, summed in a
+fixed order over the learners (:func:`ordered_means`).  The
 explicit reduce-scatter + all-gather lowering of the reference
 (``_scatter_mean``, its ``bucket_specs``) belongs to the multi-GPU
 hierarchy, ROADMAP Queue 1 item 7, and raises here.
@@ -26,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten, tree_map, unflatten
 
 AXIS_POD = "pod"
 AXIS_GROUP = "group"
@@ -124,18 +125,56 @@ def average_over(tree, axes: Tuple[int, ...], constraint_fn=None,
             "constraint_fn / bucket_specs (sharded reductions) are not "
             "ported: ROADMAP Queue 1 item 7")
     axes = tuple(axes)
+    if mask is None:
+        flat, treedef = flatten(tree)
+        return unflatten(treedef, ordered_means(flat, axes))
 
     def avg(x):
-        if mask is not None:
-            w = _mask_weights(mask, x.dim(), x.dtype)
-            c = torch.sum(w, dim=axes, keepdim=True)
-            s = torch.sum(x * w, dim=axes, keepdim=True)
-            m = s / torch.clamp(c, min=1)     # all-absent group: 0, not NaN
-        else:
-            m = torch.mean(x, dim=axes, keepdim=True)
+        w = _mask_weights(mask, x.dim(), x.dtype)
+        c = torch.sum(w, dim=axes, keepdim=True)
+        s = torch.sum(x * w, dim=axes, keepdim=True)
+        m = s / torch.clamp(c, min=1)         # all-absent group: 0, not NaN
         return m.expand_as(x).clone()
 
     return tree_map(avg, tree)
+
+
+def ordered_means(xs, axes: Tuple[int, ...]):
+    """The mean of each tensor in ``xs`` over ``axes``, broadcast back to
+    its shape and materialised.  The learners are summed by a fixed tree
+    of elementwise adds in row-major learner order, then divided by their
+    count; 16-bit inputs sum in fp32.  Every element's sum runs in the
+    same order whatever the tensor's shape, so a bucket of leaves averages
+    bit for bit as the leaves do one by one (``torch.mean`` picks its
+    reduction order from the shape on the card).
+
+    The learner axes, which are adjacent, are flattened in place (a view),
+    each level of the tree adds two strided halves of every tensor in one
+    ``_foreach_add``, and the division writes the broadcast output
+    directly, so no input is copied."""
+    axes = tuple(sorted(axes))
+    d, e = axes[0], axes[-1]
+    if axes != tuple(range(d, e + 1)):
+        raise ValueError(f"learner axes {axes} are not adjacent")
+    ys = [(x.float() if x.dtype in (torch.bfloat16, torch.float16) else x)
+          .flatten(d, e) for x in xs]
+    n = ys[0].shape[d] if ys else 1
+    while ys and ys[0].shape[d] > 1:          # learner i + h joins learner i
+        m = ys[0].shape[d]
+        h = m // 2
+        sums = torch._foreach_add([y.narrow(d, 0, h) for y in ys],
+                                  [y.narrow(d, h, h) for y in ys])
+        if m % 2:
+            torch._foreach_add_([s.select(d, h - 1) for s in sums],
+                                [y.select(d, 2 * h) for y in ys])
+        ys = sums
+    out = []
+    for x, y in zip(xs, ys):
+        keep = tuple(1 if i in axes else k for i, k in enumerate(x.shape))
+        o = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        torch.div(y.reshape(keep).expand_as(x), n, out=o)
+        out.append(o)
+    return out
 
 
 def where_active(mask: torch.Tensor, new_tree, old_tree):

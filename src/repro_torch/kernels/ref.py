@@ -83,3 +83,101 @@ def topk_compress_plain(x: torch.Tensor, k: int
                        stable=True).indices
     idx = torch.sort(order[:, :k], dim=-1).values
     return torch.gather(x, 1, idx), idx.to(torch.int32)
+
+
+# --------------------------------------------------------------------- #
+# qint8: fused quantize + pack, and its inverse
+
+QINT8_SCALE_BYTES = 4      # one fp32 scale per block, as int8[4]
+QINT8_SCALE_FLOOR = 1e-12
+# 1/127 rounded to fp32.  The reference divides by 127 in its source, and
+# under jit XLA folds that division by a constant into a multiply by the
+# constant's fp32 reciprocal (0.00787401572): that product, not the
+# quotient, is the scale the reference puts on the wire; for some inputs
+# the two differ in the last bit.
+QINT8_INV_127 = 0.007874015718698502
+
+
+def qint8_quantize_plain(x: torch.Tensor, block: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[rows, n] -> (q int8 [rows, nb, block], scale fp32 [rows, nb, 1]).
+
+    Per block of ``block`` consecutive elements (the final partial block
+    zero-padded): ``scale = max(max|x| * fp32(1/127), 1e-12)`` in fp32
+    (what the reference's ``max|x| / 127`` computes under jit),
+    ``q = clip(round(x / scale), -127, 127)`` with round half to even
+    (``torch.round``, as ``jnp.round``).
+    """
+    rows, n = x.shape
+    nb = -(-n // block)
+    xb = x.float()
+    if nb * block != n:
+        xb = torch.nn.functional.pad(xb, (0, nb * block - n))
+    xb = xb.reshape(rows, nb, block)
+    scale = torch.amax(torch.abs(xb), dim=-1, keepdim=True) * QINT8_INV_127
+    scale = torch.clamp(scale, min=QINT8_SCALE_FLOOR)
+    q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def qint8_dequantize_plain(q: torch.Tensor, scale: torch.Tensor,
+                           n: int) -> torch.Tensor:
+    """Inverse of :func:`qint8_quantize_plain`: ``q * scale`` in fp32 ->
+    [rows, n] (padding stripped)."""
+    return (q.float() * scale).reshape(q.shape[0], -1)[:, :n]
+
+
+def qint8_pack_plain(x: torch.Tensor, block: int) -> torch.Tensor:
+    """Fused quantize+pack: ``[rows, n] -> int8 [rows, nb, block + 4]``,
+    each block's payload followed by its fp32 scale's four bytes,
+    little-endian (``view(torch.int8)``, as JAX's bitcast).  Step for step
+    ``repro/kernels/ref.py::qint8_pack_ref``."""
+    q, scale = qint8_quantize_plain(x, block)
+    return torch.cat([q, scale.view(torch.int8)], dim=-1)
+
+
+def qint8_unpack_plain(wire: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`qint8_pack_plain`: ``int8 [rows, nb, block + 4]
+    -> fp32 [rows, n]``, ``q * scale`` in fp32, padding stripped."""
+    block = wire.shape[-1] - QINT8_SCALE_BYTES
+    scale = wire[..., block:].clone(memory_format=torch.contiguous_format
+                                     ).view(torch.float32)
+    return qint8_dequantize_plain(wire[..., :block], scale, n)
+
+
+# --------------------------------------------------------------------- #
+# batched thin QR (CGS2)
+
+QR_EPS = 1e-30             # rank-deficiency floor on a squared column norm
+
+
+def batched_qr_plain(p: torch.Tensor, passes: int = 2) -> torch.Tensor:
+    """Thin-QR Q factor of tall panels: ``[..., a, r] -> Q [..., a, r]``.
+
+    Classical Gram-Schmidt with reorthogonalization (CGS2), the recurrence
+    of the Pallas body ``repro/kernels/batched_qr.py::_qr_kernel`` in
+    batched torch ops, in fp32: per column, ``passes`` projection passes
+    against the columns already filled (two; ``passes=1`` is plain CGS,
+    kept only as a control that loses orthogonality on ill-conditioned
+    panels), then ``v * rsqrt(|v|^2)``, or an exact zero column when
+    ``|v|^2 <= 1e-30``.  Column signs follow the input panel's.  This is
+    not ``torch.linalg.qr``: that routine is Householder, like the
+    reference's oracle, and completes a rank-deficient panel with some
+    orthonormal direction where this gives zeros.
+    """
+    *lead, a, r = p.shape
+    if a < r:
+        raise ValueError(
+            f"batched_qr needs a tall panel (a >= r), got {tuple(p.shape)}")
+    x = p.reshape(-1, a, r).float()
+    q = torch.zeros_like(x)
+    for j in range(r):
+        v = x[:, :, j:j + 1]                                 # [B, a, 1]
+        for _ in range(passes):
+            c = torch.sum(q * v, dim=1, keepdim=True)        # [B, 1, r]
+            v = v - torch.sum(q * c, dim=2, keepdim=True)
+        nrm2 = torch.sum(v * v, dim=1, keepdim=True)         # [B, 1, 1]
+        inv = torch.where(nrm2 > QR_EPS, torch.rsqrt(nrm2),
+                          torch.zeros_like(nrm2))
+        q[:, :, j:j + 1] = v * inv
+    return q.reshape(p.shape).to(p.dtype)

@@ -61,6 +61,29 @@ def unflatten(treedef: Any, leaves_: List[Any]) -> Any:
     return out
 
 
+def flatten_up_to(treedef: Any, tree: Any) -> List[Any]:
+    """The subtrees of ``tree`` at the leaf positions of ``treedef``, in
+    leaf order (``tree`` has ``treedef``'s structure down to them; what
+    sits there may be any value, ``()`` included)."""
+    out: List[Any] = []
+
+    def walk(node, sub):
+        kind, keys, children = node
+        if kind == _LEAF:
+            out.append(sub)
+        elif kind is dict:
+            for k, c in zip(keys, children):
+                walk(c, sub[k])
+        elif kind is not None:
+            if len(sub) != len(children):
+                raise ValueError("tree does not match the structure")
+            for c, v in zip(children, sub):
+                walk(c, v)
+
+    walk(treedef, tree)
+    return out
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` over the leaves of ``tree`` and of each tree in ``rest``,
     which must have the same structure."""

@@ -277,28 +277,27 @@ def test_round_batch_helpers_match_jax():
 
 @pytest.mark.parametrize("spec", [
     "mean", "cast", "cast:float16", "topk:0.05", "topk:0.1:perleaf",
-    "topk:0.25:perleaf:serial", "mean:serial"])
+    "topk:0.25:perleaf:serial", "mean:serial",
+    "randk:0.1", "qint8", "powersgd:2", "topk:0.1:bucketed",
+    "topk:0.1:pipelined"])
 def test_reducer_specs_match_jax(spec):
     jr, tr = jcomm.get_reducer(spec), tcomm.get_reducer(spec)
+    assert type(tr).__name__ == type(jr).__name__
     assert tr.describe() == jr.describe()
     assert tcomm.get_reducer(tr.describe()).describe() == jr.describe()
     for attr in ("stateful", "bucket_by_default", "bucket_opt_out",
-                 "overlap_opt_out"):
+                 "overlap_opt_out", "has_codec", "wants_matrix",
+                 "codec_name"):
         assert getattr(tr, attr) == getattr(jr, attr), attr
     p_np = _mlp_np_params()
-    assert tr.payload_bytes(convert.tree_from_numpy(p_np, device="cpu")) \
-        == jr.payload_bytes(jax.tree.map(jnp.asarray, p_np))
+    tp = convert.tree_from_numpy(p_np, device="cpu")
+    jp = jax.tree.map(jnp.asarray, p_np)
+    for fn in ("payload_bytes", "wire_payload_bytes", "n_messages"):
+        assert getattr(tr, fn)(tp) == getattr(jr, fn)(jp), fn
+    inner = getattr(tr, "inner", tr)
     if spec.startswith("topk"):
         for n in (1, 3, 10, 50, 64, 1728, 2359296):
-            assert tr.k_for(n) == jr.k_for(n)
-
-
-@pytest.mark.parametrize("spec", [
-    "randk:0.1", "qint8", "powersgd:2", "topk:0.1:bucketed",
-    "topk:0.1:pipelined"])
-def test_unported_reducers_raise(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        tcomm.get_reducer(spec)
+            assert inner.k_for(n) == getattr(jr, "inner", jr).k_for(n)
 
 
 @pytest.mark.parametrize("spec", [
@@ -316,20 +315,42 @@ def test_plan_parse_matches_jax(spec):
 
 
 def test_plan_backfills_k1_k2_and_refuses_the_bucket_engine():
+    """The name predates the bucket engine: plans the reference buckets
+    now resolve to the reference's engines (auto-wrapping, the pins, the
+    demotion under overlap=False); only shards= still raises."""
     h = HierAvgParams(plan="local@2/pod@4/global@8")
     assert (h.k1, h.k2, h.beta, h.batch_dims) == (2, 8, 4, (2, 2, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        HierAvgParams(reducer="topk:0.05")
-    with pytest.raises(NotImplementedError, match="bucket_bytes=0"):
-        HierAvgParams(plan="local@2/global@8:topk:0.05")
-    HierAvgParams(reducer="topk:0.05", bucket_bytes=0)
-    HierAvgParams(reducer="topk:0.05:perleaf")
-    HierAvgParams(plan="local@2/global@8:topk:0.05", bucket_bytes=0)
+    cases = [dict(reducer="topk:0.05"), dict(reducer="qint8"),
+             dict(plan="local@2/global@8:topk:0.05"),
+             dict(plan="local@2/global@8:powersgd:2:bucketed"),
+             dict(reducer="topk:0.05", bucket_bytes=0),
+             dict(reducer="topk:0.05:perleaf"),
+             dict(plan="local@2:qint8/global@8:topk:0.05", overlap=False),
+             dict(plan="local@2:cast:serial/global@8:topk:0.05:pipelined",
+                  overlap=False),
+             dict(reducer="topk:0.05:bucketed", bucket_bytes=64)]
+    for kw in cases:
+        tp, jp = HierAvgParams(**kw).resolved_plan, JHier(**kw).resolved_plan
+        assert tp.describe() == jp.describe(), kw
+        assert tplan.resolve_plan(HierAvgParams(**kw)).describe() \
+            == jplan.resolve_plan(JHier(**kw)).describe(), kw
+        for a, b in zip(tp.levels, jp.levels):
+            assert type(a.reducer).__name__ == type(b.reducer).__name__, kw
+            assert getattr(a.reducer, "effective_bucket_bytes", None) \
+                == getattr(b.reducer, "effective_bucket_bytes", None), kw
+    for overlap in (True, False):
+        resolved = tplan.resolve_plan(HierAvgParams(reducer="topk:0.25",
+                                                    bucket_bytes=72))
+        demoted = tplan.apply_bucketing(resolved, 72, overlap=overlap)
+        jres_ = jplan.apply_bucketing(jplan.resolve_plan(
+            JHier(reducer="topk:0.25", bucket_bytes=72)), 72,
+            overlap=overlap)
+        assert [type(lv.reducer).__name__ for lv in demoted.levels] \
+            == [type(lv.reducer).__name__ for lv in jres_.levels]
     with pytest.raises(ValueError):
         HierAvgParams(plan="local@3/global@8")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        th.make_hier_round(tres.mlp_cls_loss, toptim.sgd(0.1),
-                           HierAvgParams(), reducer="topk:0.1")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tplan.apply_bucketing(h.resolved_plan, 64, shards=object())
 
 
 def test_unported_trainer_options_raise():

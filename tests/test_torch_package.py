@@ -37,11 +37,13 @@ def _modules():
 
 def test_importing_every_module_leaves_jax_out():
     mods = _modules()
-    for m in ("kernels.flash_decode", "kernels.topk_compress", "tree",
+    for m in ("kernels.flash_decode", "kernels.topk_compress",
+              "kernels.qint8_pack", "kernels.batched_qr", "tree",
               "core.topology", "core.plan", "core.hier_avg",
               "core.baselines", "core.simulator", "comm.reducer",
-              "comm.sparse", "optim.optimizers", "optim.schedules",
-              "optim.clip", "data.synthetic", "models.resnet"):
+              "comm.sparse", "comm.quant", "comm.lowrank", "comm.bucket",
+              "optim.optimizers", "optim.schedules", "optim.clip",
+              "data.synthetic", "models.resnet"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -68,3 +70,22 @@ def test_source_does_not_import_jax_or_repro(path):
         text = f.read()
     hit = FORBIDDEN.search(text)
     assert hit is None, f"{path}: {hit.group(0)!r}"
+
+
+def test_every_kernel_source_is_built_by_the_chip_smoke():
+    """Each csrc/*.cu has a wrapper module and is in chip_smoke.SOURCES,
+    which phase 2 builds (one nvcc each, all at once)."""
+    import ast
+    csrc = os.path.join(SRC, "kernels", "csrc")
+    found = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
+    for name in ("flash_decode", "topk_compress", "qint8_pack",
+                 "batched_qr"):
+        assert name in found, name
+        assert os.path.exists(os.path.join(SRC, "kernels", f"{name}.py"))
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    sources = [ast.literal_eval(node.value) for node in tree.body
+               if isinstance(node, ast.Assign)
+               and any(getattr(t, "id", None) == "SOURCES"
+                       for t in node.targets)]
+    assert sources and sorted(sources[0]) == found
