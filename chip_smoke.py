@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch port on one NVIDIA GPU: paged serving of
 StarCoder2-15B at full width through the hand-written flash-decode kernel,
-and Hier-AVG training of ResNet-18 at full width with a sparse top-k
-global reduction through the hand-written top-k kernel, then with the
-compressed reductions (qint8, PowerSGD) on the bucket engine through the
-hand-written qint8 pack/unpack and batched-QR kernels.
+Hier-AVG training of ResNet-18 at full width with a sparse top-k global
+reduction through the hand-written top-k kernel, then with the compressed
+reductions (qint8, PowerSGD) on the bucket engine through the hand-written
+qint8 pack/unpack and batched-QR kernels, and Hier-AVG training of the
+RWKV-6 and dense GQA language models at full width through the
+hand-written WKV6 and flash-attention kernels, forward and backward.
 
   python3 chip_smoke.py            # from the root of a checkout, one card
 
 Phases (each prints one line of numbers; any failure exits non-zero):
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions
-  2. build    nvcc builds the four csrc/*.cu sources (SOURCES) for sm_90a,
+  2. build    nvcc builds the six csrc/*.cu sources (SOURCES) for sm_90a,
               one process each, all at once (seconds, ptxas)
   3. kernel   flash_decode against its plain PyTorch version on the card,
               at small fp32 shapes (three windows, several tiles and pages)
@@ -64,6 +66,32 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               them; the panels' singular-value ratios, an fp64 QR on the
               same panels and an fp64-QR trajectory as witnesses of the
               drift); round parts, peak memory and a profiled round each
+  10. wkv     the WKV6 forward and backward kernels against their plain
+              versions (y, the final state, the checkpoints and all six
+              gradients within KERN_REL_TOL) at the training shape (B 8,
+              S 512, H 32, D 64, fp32, w in [0.05, 0.999], nonzero s0
+              and dS_T), at S 64, 192 and 130 (D 32) and in bf16; two
+              controls with the bonus u dropped must fail the limit; a
+              rerun gives the same bits; times against the bound and the
+              plain versions
+  11. attention  the attention forward and backward kernels against their
+              plain versions (o, lse, dQ, dK, dV) at B 4, S 1024, Hq 48,
+              Hkv 4, D 128 in fp32 and bf16, window 4096 at S 8192, and
+              groups of 3, 5 and 7 (one ragged S); controls (window one
+              key short, kv head h % Hkv) must fail; a rerun gives the
+              same bits; times against the bound, the plain versions and
+              SDPA
+  12. rwkv    rwkv6-1.6b at full width, 4 of 24 layers, random init from
+              seed 0, P = 4 as (1, 2, 2), plan local@2/global@8:topk:0.05
+              per leaf, sgd(0.1), 2 x 512 tokens of a 512-token Markov
+              chain per learner per step, 3 rounds: losses, eval loss
+              (falling), round and part walls, peak memory, exact launch
+              counts; the padded default-bucket bytes; 1 round kernel vs
+              plain from one converted state within LM_LOSS_TOL /
+              LM_PARAM_TOL; a profiled round by kernel class
+  13. dense   starcoder2-15b the same way at 1 of 40 layers, default
+              HierAvgParams(k1=2, k2=4), 1 x 1024 tokens per learner per
+              step; then launch.train.main on the card (reduced rwkv6)
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -96,7 +124,8 @@ BF16_ULPS = 2.0
 # 1.399e-2 on an H100; plain with the window one page short reads 1.866e-2
 # against plain, so the limit sits between them (PERF.md, Findings)
 LOGIT_REL_TOL = 1.6e-2
-SOURCES = ("flash_decode", "topk_compress", "qint8_pack", "batched_qr")
+SOURCES = ("flash_decode", "topk_compress", "qint8_pack", "batched_qr",
+           "rwkv6_wkv", "flash_attention")
 TOPK_RATIO = 0.05
 TOPK_ROWS = 16                      # P = 16 learners: one row each
 TRAIN_PLAN = "local@2/global@8:topk:0.05"
@@ -127,6 +156,41 @@ PSGD_LOSS_TOL = 1e-2
 PSGD_PARAM_TOL = 1e-2
 CODEC_PLANS = ("local@2:qint8/global@8:topk:0.05",
                "local@2/global@8:powersgd:2:bucketed")
+# phases 10 and 11, each WKV and attention kernel against its plain
+# version, fp32: max|kernel - plain| <= KERN_REL_TOL * max|plain| per
+# output.  Both sum in fp32 in other orders: a dot product of 64 (WKV) or
+# 128 (attention) terms rounds at about sqrt(n) * 6e-8 of its largest term
+# (~1e-6), and 512 recurrent steps add rounding as a random walk
+# (sqrt(512) * 6e-8 = 1.4e-6), so 1e-5 leaves about 5x.  bf16 outputs, per
+# element: BF16_ULPS ulps of max(|kernel|, |plain|) plus KERN_REL_TOL *
+# max|plain|.  Controls that must fail it: y and dk with the bonus u's
+# term dropped, attention one key short of its window (forward and dK),
+# and query head h on kv head h % Hkv instead of h // group.
+KERN_REL_TOL = 1e-5
+# phases 12 and 13: full-width LM training through the Hier-AVG trainer
+LM_MARKOV_VOCAB = 512       # the Markov chain's token ids (a 65,536^2
+                            # chain would take 17 GB)
+LM_ROUNDS = 3
+LM_FULL_DEPTH = {"rwkv6-1.6b": 24, "starcoder2-15b": 40}
+# depth, cut to what fits one card at 4 learners with room to spare:
+# params, grads, new params, top-k EF ref/err and a step's activations under
+# vmap(grad); rwkv6 at 6 layers ran out of the card's 80 GB in its first
+# SGD step (PERF.md, PR 14), and starcoder2 at 2 layers would hold 66 GB in
+# params, grads and new params alone.  Both phases print their peak.
+RWKV_LAYERS = 4
+DENSE_LAYERS = 1
+LM_RWKV_PLAN = "local@2/global@8:topk:0.05"
+# kernel against plain, 1 round from one converted state: the round's mean
+# loss within LM_LOSS_TOL relative (per-call differences of ~1e-6 carried
+# through 8 SGD steps; 100x margin), and params within LM_PARAM_TOL of
+# their leaf's largest value except for at most LM_SWAP_FRAC of the
+# coordinates: the global top-k fire may swap coordinates whose
+# magnitudes tie within the kernels' rounding (seen on the CPU against
+# the reference: 1-3 swaps in 3 of 25 leaves of the reduced LM), each
+# moving a param by up to a sent delta
+LM_LOSS_TOL = 1e-4
+LM_PARAM_TOL = 1e-4
+LM_SWAP_FRAC = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -641,14 +705,21 @@ def phase_topk(torch):
 
 def trace_kernels(prof, path):
     """The device kernels of a torch.profiler run, from its Chrome trace:
-    (name, start us, duration us, stream) each."""
+    (name, start us, duration us, stream) each; and the host's CUDA
+    runtime and driver calls, {name: summed duration us}."""
     prof.export_chrome_trace(path)
     with gzip.open(path, "rt") as f:
         events = json.load(f).get("traceEvents", [])
+    api = {}
+    for e in events:
+        if e.get("ph") == "X" and str(e.get("cat", "")).lower() in (
+                "cuda_runtime", "cuda_driver"):
+            api[e["name"]] = api.get(e["name"], 0.0) + float(e["dur"])
     return [(e["name"], float(e["ts"]), float(e["dur"]),
              e.get("args", {}).get("stream"))
             for e in events
-            if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"]
+            if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"
+            ], api
 
 
 def busy_us(kernels) -> float:
@@ -838,7 +909,7 @@ def profile_round(torch, rnd, state, batch, label, classes):
         torch.cuda.synchronize()
         prof_wall_us = (time.perf_counter() - t0) * 1e6
     with tempfile.TemporaryDirectory() as tmp:
-        kernels = trace_kernels(prof, os.path.join(tmp, "round.json.gz"))
+        kernels, api = trace_kernels(prof, os.path.join(tmp, "round.json.gz"))
     if not kernels:
         print(f"{label} profile: the profiler saw no device time "
               f"(device breakdown not measured)")
@@ -860,6 +931,15 @@ def profile_round(torch, rnd, state, batch, label, classes):
     top = sorted(((v, k) for k, v in totals.items()), reverse=True)[:8]
     print(f"{label} top device kernels (ms per round): " + " | ".join(
         f"{k[:70]} {v / 1e3:.3f}" for v, k in top))
+    # host time in the allocator's runtime and driver calls (a free or a
+    # map waits for the device) against the rest of the API
+    mem = sum(v for k, v in api.items() if any(w in k for w in (
+        "Malloc", "Free", "MemMap", "MemUnmap", "MemCreate", "MemRelease",
+        "MemSetAccess", "MemAddress")))
+    top_api = sorted(((v, k) for k, v in api.items()), reverse=True)[:4]
+    print(f"{label} host CUDA API (ms per profiled round): memory calls "
+          f"{mem / 1e3:.3f}; top: " + " | ".join(
+              f"{k} {v / 1e3:.3f}" for v, k in top_api))
 
 
 def phase_train(torch):
@@ -1371,6 +1451,556 @@ def phase_codecs(torch):
              "bound_by": qr_by})
 
 
+# --------------------------------------------------------------------- #
+# phase 10: the WKV6 kernels against their plain versions
+
+
+def within(torch, out_k, out_p):
+    """(ok, max |kernel - plain|, measure) against KERN_REL_TOL: fp32
+    outputs by max|diff| / max|plain| (the measure); bf16 outputs per
+    element within BF16_ULPS ulps of max(|kernel|, |plain|) plus
+    KERN_REL_TOL * max|plain| (the measure: the largest share of an
+    element's limit)."""
+    k, p = out_k.float(), out_p.float()
+    diff = (k - p).abs()
+    err = diff.max().item()
+    scale = max(p.abs().max().item(), 1e-30)
+    if not torch.isfinite(k).all():
+        return False, float("inf"), float("inf")
+    if out_k.dtype == torch.float32:
+        rel = err / scale
+        return rel <= KERN_REL_TOL, err, rel
+    ulp = bf16_ulp(torch, torch.maximum(k.abs(), p.abs()))
+    share = (diff / (BF16_ULPS * ulp + KERN_REL_TOL * scale)).max().item()
+    return share <= 1.0, err, share
+
+
+def hold(torch, label, out_k, out_p):
+    ok, err, measure = within(torch, out_k, out_p)
+    if not ok:
+        fail(f"{label}: kernel against plain {measure:.3e} of its limit "
+             f"measure (max abs {err:.3e}; fp32 limit {KERN_REL_TOL} of "
+             f"max|plain|, bf16 {BF16_ULPS} ulps + that)")
+    return err, measure
+
+
+def control(torch, label, out_bad, out_p):
+    """A planted fault must fail the limit the kernels are held to."""
+    ok, _, measure = within(torch, out_bad, out_p)
+    if ok:
+        fail(f"control {label} passed the kernel limit ({measure:.3e}): "
+             f"the limit cannot see that fault")
+    return measure
+
+
+def wkv_inputs(torch, b, s, h, d, dtype, seed):
+    """r/k/v/dy normal * 0.5, w uniform in [0.05, 0.999], per-row u, and
+    nonzero s0 and dS_T, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda") * 0.5
+
+    r, k, v, dy = (n(b, s, h, d).to(dtype) for _ in range(4))
+    w = (torch.rand((b, s, h, d), generator=g, device="cuda") * 0.949
+         + 0.05).to(dtype)
+    return r, k, v, w, n(b, h, d), n(b, h, d, d), dy, n(b, h, d, d)
+
+
+def wkv_bound(b, s, h, d, esize):
+    """Least time of the forward and the backward: each input read once
+    and each output written once over HBM bandwidth, against their fp32
+    flops (forward y and the state update, 4 D^2 per step and head;
+    backward dr, dk, dv, dw and G's update plus the states it needs,
+    10 D^2) over the fp32 peak."""
+    seq = b * s * h * d
+    st = b * h * d * d * 4
+    f_bytes = 5 * seq * esize + b * h * d * 4 + 2 * st        # r k v w y
+    b_bytes = 9 * seq * esize + 2 * b * h * d * 4 + 3 * st    # +dy, grads
+    out = []
+    for nbytes, flops in ((f_bytes, 4 * d * d * s * b * h),
+                          (b_bytes, 10 * d * d * s * b * h)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+        out.append((max(t_b, t_o) * 1e3,
+                    "bytes" if t_b >= t_o else "operations", nbytes))
+    return out
+
+
+def phase_wkv(torch):
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.rwkv6_wkv import (rwkv6_wkv_backward,
+                                               rwkv6_wkv_forward)
+    names = ("y", "sT", "dr", "dk", "dv", "dw", "du", "ds0")
+    cases = [("training fp32", 8, 512, 32, 64, torch.float32),
+             ("S64 fp32", 8, 64, 32, 64, torch.float32),
+             ("S192 fp32", 8, 192, 32, 64, torch.float32),
+             ("S192 bf16", 8, 192, 32, 64, torch.bfloat16),
+             ("S130 D32 fp32", 2, 130, 4, 32, torch.float32)]
+    worst, parts = {}, []
+    for i, (label, b, s, h, d, dtype) in enumerate(cases):
+        inp = wkv_inputs(torch, b, s, h, d, dtype, seed=40 + i)
+        r, k, v, w, u, s0, dy, dsT = inp
+        yk, sTk, ck = rwkv6_wkv_forward(r, k, v, w, u, s0)
+        gk = rwkv6_wkv_backward(r, k, v, w, u, ck, dy, dsT)
+        yp, sTp, cp = kref.rwkv6_wkv_forward_plain(r, k, v, w, u, s0)
+        gp = kref.rwkv6_wkv_backward_plain(r, k, v, w, u, cp, dy, dsT)
+        torch.cuda.synchronize()
+        hold(torch, f"wkv {label} checkpoints", ck, cp)
+        meas = {}
+        for name, a, bb in zip(names, (yk, sTk, *gk), (yp, sTp, *gp)):
+            _, meas[name] = hold(torch, f"wkv {label} {name}", a, bb)
+            worst[name] = max(worst.get(name, 0.0),
+                              (a.float() - bb.float()).abs().max().item())
+        parts.append(f"{label}: " + " ".join(
+            f"{n}={m:.2e}" for n, m in meas.items()))
+        if i == 0:
+            train = (inp, ck, yp, gp)
+        del inp, yk, sTk, ck, gk, yp, sTp, cp, gp
+    (r, k, v, w, u, s0, dy, dsT), ck, yp, gp = train
+    # controls at the training shape: the bonus u dropped from y, and
+    # from dk (a backward that forgets u's term)
+    ctl_y = control(torch, "y without u", yp - v * (r * u[:, None] * k)
+                    .sum(-1, keepdim=True), yp)
+    ctl_dk = control(torch, "dk without u", gp[1] - u[:, None] * r
+                     * (dy * v).sum(-1, keepdim=True), gp[1])
+    # a rerun gives the same bits (no atomics)
+    yk, sTk, ck1 = rwkv6_wkv_forward(r, k, v, w, u, s0)
+    gk = rwkv6_wkv_backward(r, k, v, w, u, ck1, dy, dsT)
+    yk2, sTk2, ck2 = rwkv6_wkv_forward(r, k, v, w, u, s0)
+    gk2 = rwkv6_wkv_backward(r, k, v, w, u, ck2, dy, dsT)
+    torch.cuda.synchronize()
+    if not all(same_bits(torch, a, bb) for a, bb in zip(
+            (yk, sTk, ck1, *gk), (yk2, sTk2, ck2, *gk2))):
+        fail("wkv: a rerun gave other bits")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    f_ms = time_ms(torch, lambda: rwkv6_wkv_forward(r, k, v, w, u, s0),
+                   flush, 20)
+    b_ms = time_ms(torch, lambda: rwkv6_wkv_backward(
+        r, k, v, w, u, ck1, dy, dsT), flush, 10)
+    f_plain = time_ms(torch, lambda: kref.rwkv6_wkv_forward_plain(
+        r, k, v, w, u, s0), flush, 2)
+    b_plain = time_ms(torch, lambda: kref.rwkv6_wkv_backward_plain(
+        r, k, v, w, u, ck1, dy, dsT), flush, 1)
+    (fb, fby, fbytes), (bb_, bby, bbytes) = wkv_bound(8, 512, 32, 64, 4)
+    print(f"phase 10 wkv kernels vs plain (fp32 limit {KERN_REL_TOL} of "
+          f"max|plain|, bf16 {BF16_ULPS} ulps + that; measures per "
+          f"output): " + " | ".join(parts) + f"; controls: y without u "
+          f"{ctl_y:.3e}, dk without u {ctl_dk:.3e} (fail, as they must); "
+          f"rerun bit-identical; training shape (B8 S512 H32 D64 fp32, L2 "
+          f"flushed): fwd_ms={f_ms:.4f} plain_ms={f_plain:.4f} "
+          f"bound_ms={fb:.4f} ({fby}, {fbytes} B); bwd_ms={b_ms:.4f} "
+          f"plain_ms={b_plain:.4f} bound_ms={bb_:.4f} ({bby}, {bbytes} B); "
+          f"library: none (no single PyTorch call)")
+    fwd = {"max_abs_err": max(worst["y"], worst["sT"]), "ms": f_ms,
+           "plain_ms": f_plain, "bound_ms": fb, "bound_by": fby,
+           "library_ms": None}
+    bwd = {"max_abs_err": max(worst[n] for n in names[2:]), "ms": b_ms,
+           "plain_ms": b_plain, "bound_ms": bb_, "bound_by": bby,
+           "library_ms": None}
+    return fwd, bwd
+
+
+# --------------------------------------------------------------------- #
+# phase 11: the attention kernels against their plain versions
+
+
+def attn_inputs(torch, b, s, hq, hkv, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    return n(b, s, hq, d), n(b, s, hkv, d), n(b, s, hkv, d), n(b, s, hq, d)
+
+
+def attn_bound(b, s, hq, hkv, d, window, esize):
+    """Least time of the forward and the backward: the causal (and
+    window) FLOPs the inputs need, 4 D per visible (query, key) pair and
+    head forward (Q K^T and P V) and 10 D backward (S again, dP, dV, dK,
+    dQ), over the peak for the type (fp32 CUDA cores or bf16 tensor
+    cores), against each input read once and each output written once."""
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    qo = b * s * hq * d * esize
+    kv = b * s * hkv * d * esize
+    lse = b * hq * s * 4
+    peak = FP32_FLOPS if esize == 4 else BF16_FLOPS
+    out = []
+    for nbytes, flops in ((2 * qo + 2 * kv + lse, 4 * d * hq * b * pairs),
+                          (4 * qo + 4 * kv + lse, 10 * d * hq * b * pairs)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+        out.append((max(t_b, t_o) * 1e3,
+                    "bytes" if t_b >= t_o else "operations", flops))
+    return out
+
+
+def phase_attention(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_fwd)
+    cases = [("training fp32", 4, 1024, 48, 4, 128, 0, torch.float32),
+             ("training bf16", 4, 1024, 48, 4, 128, 0, torch.bfloat16),
+             ("window 4096 at S 8192", 1, 8192, 12, 1, 128, 4096,
+              torch.float32),
+             ("G3 D64 window 0", 2, 192, 6, 2, 64, 0, torch.float32),
+             ("G5 D32 window 70", 1, 320, 5, 1, 32, 70, torch.float32),
+             ("G3 D128 S200 ragged", 2, 200, 9, 3, 128, 0, torch.float32),
+             ("G7 D64 window 100 bf16", 1, 256, 7, 1, 64, 100,
+              torch.bfloat16)]
+    names = ("o", "lse", "dq", "dk", "dv")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    worst_f, worst_b, parts, records, controls = 0.0, 0.0, [], {}, []
+    for i, (label, b, s, hq, hkv, d, win, dtype) in enumerate(cases):
+        q, k, v, do = attn_inputs(torch, b, s, hq, hkv, d, dtype, 50 + i)
+        ok_, lk = flash_attention_fwd(q, k, v, window=win)
+        op, lp = kref.flash_attention_plain(q, k, v, window=win)
+        gk = flash_attention_backward(q, k, v, op, lp, do, window=win)
+        gp = kref.flash_attention_backward_plain(q, k, v, op, lp, do,
+                                                 window=win)
+        torch.cuda.synchronize()
+        meas = {}
+        for name, a, bb in zip(names, (ok_, lk, *gk), (op, lp, *gp)):
+            err, meas[name] = hold(torch, f"attention {label} {name}", a, bb)
+            if name in ("o", "lse"):
+                worst_f = max(worst_f, err)
+            else:
+                worst_b = max(worst_b, err)
+        parts.append(f"{label}: " + " ".join(
+            f"{n}={m:.2e}" for n, m in meas.items()))
+        if win:
+            # controls: the window one key short, forward and backward
+            ob, lb = kref.flash_attention_plain(q, k, v, window=win - 1)
+            gb = kref.flash_attention_backward_plain(q, k, v, ob, lb, do,
+                                                     window=win - 1)
+            controls.append(f"{label} window-1: o "
+                            f"{control(torch, 'o, window - 1', ob, op):.2e}"
+                            f" dk {control(torch, 'dk, window - 1', gb[1], gp[1]):.2e}")
+            del ob, lb, gb
+        if label.startswith("training"):
+            # control: kv heads taken as h % Hkv instead of h // group
+            perm = torch.arange(hq, device="cuda").reshape(
+                hkv, hq // hkv).T.reshape(-1)
+            ob, _ = kref.flash_attention_plain(q[:, :, perm], k, v)
+            inv = torch.argsort(perm)
+            controls.append(f"{label} kv head h % Hkv: o "
+                            f"{control(torch, 'o, h % Hkv', ob[:, :, inv], op):.2e}")
+            t = dict(
+                ms=time_ms(torch, lambda: flash_attention_fwd(q, k, v),
+                           flush, 10),
+                plain_ms=time_ms(torch, lambda: kref.flash_attention_plain(
+                    q, k, v), flush, 3),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True), flush, 10),
+                bwd_ms=time_ms(torch, lambda: flash_attention_backward(
+                    q, k, v, op, lp, do), flush, 5),
+                bwd_plain_ms=time_ms(torch, lambda: kref.
+                                     flash_attention_backward_plain(
+                                         q, k, v, op, lp, do), flush, 2))
+            (fb, fby, ff), (bb_, bby, bf) = attn_bound(
+                b, s, hq, hkv, d, 0, q.element_size())
+            t.update(bound_ms=fb, bound_by=fby, bwd_bound_ms=bb_,
+                     bwd_bound_by=bby, flops=ff, bwd_flops=bf)
+            records[label] = t
+        del q, k, v, do, ok_, lk, op, lp, gk, gp
+    # a rerun gives the same bits (no atomics)
+    q, k, v, do = attn_inputs(torch, 2, 192, 6, 2, 64, torch.float32, 53)
+    o1, l1 = flash_attention_fwd(q, k, v, window=70)
+    g1 = flash_attention_backward(q, k, v, o1, l1, do, window=70)
+    o2, l2 = flash_attention_fwd(q, k, v, window=70)
+    g2 = flash_attention_backward(q, k, v, o2, l2, do, window=70)
+    torch.cuda.synchronize()
+    if not all(same_bits(torch, a, bb) for a, bb in zip(
+            (o1, l1, *g1), (o2, l2, *g2))):
+        fail("attention: a rerun gave other bits")
+    print(f"phase 11 attention kernels vs plain (fp32 limit {KERN_REL_TOL} "
+          f"of max|plain|, bf16 {BF16_ULPS} ulps + that; measures per "
+          f"output): " + " | ".join(parts) + "; controls (fail, as they "
+          f"must): " + "; ".join(controls) + "; rerun bit-identical")
+    for label, t in records.items():
+        print(f"phase 11 attention {label} (B4 S1024 Hq48 Hkv4 D128 causal, "
+              f"L2 flushed): fwd_ms={t['ms']:.4f} plain_ms="
+              f"{t['plain_ms']:.4f} sdpa_ms={t['library_ms']:.4f} "
+              f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}, "
+              f"{t['flops']} flops); bwd_ms={t['bwd_ms']:.4f} plain_ms="
+              f"{t['bwd_plain_ms']:.4f} bound_ms={t['bwd_bound_ms']:.4f} "
+              f"({t['bwd_bound_by']}, {t['bwd_flops']} flops)")
+    t = records["training fp32"]
+    fwd = {"max_abs_err": worst_f, "ms": t["ms"], "plain_ms": t["plain_ms"],
+           "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+           "library_ms": t["library_ms"]}
+    bwd = {"max_abs_err": worst_b, "ms": t["bwd_ms"],
+           "plain_ms": t["bwd_plain_ms"], "bound_ms": t["bwd_bound_ms"],
+           "bound_by": t["bwd_bound_by"], "library_ms": None}
+    return fwd, bwd
+
+
+# --------------------------------------------------------------------- #
+# phases 12 and 13: full-width LM training
+
+
+LM_CLASSES = (
+    ("rwkv6_wkv", ("wkv6_",)),
+    ("flash_attention", ("attn_",)),
+    ("topk_compress", ("topk_",)),
+    ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "sm80_", "ampere")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("reduce", ("reduce",)),
+    ("softmax", ("softmax",)),
+)
+
+
+def lm_counters():
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_fwd)
+    from repro_torch.kernels.rwkv6_wkv import (rwkv6_wkv_backward,
+                                               rwkv6_wkv_forward)
+    from repro_torch.kernels.topk_compress import topk_compress
+    return {"rwkv6_wkv_forward": rwkv6_wkv_forward,
+            "rwkv6_wkv_backward": rwkv6_wkv_backward,
+            "flash_attention_forward": flash_attention_fwd,
+            "flash_attention_backward": flash_attention_backward,
+            "topk_compress": topk_compress}
+
+
+def lm_setup(torch, arch, n_layers, seq, impl="auto"):
+    """The arch at full width cut to ``n_layers``, random init from seed
+    0, and a sampler of seq-token chains of the 512-token Markov task."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_markov_task, markov_lm_batch
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    bundle = build(cfg, impl=impl, device="cuda")
+    logits, floor = make_markov_task(LM_MARKOV_VOCAB, device="cuda")
+
+    def sample(gen, n):
+        return markov_lm_batch(gen, n, seq, logits)
+
+    return cfg, bundle, sample, floor
+
+
+def padded_bucket_bytes(torch, cfg, n_learners):
+    """What default bucketing (4 MiB cap, pipelined, uniform) would hold
+    for the top-k EF state (ref and err) against per-leaf, from meta
+    tensors: nothing is allocated."""
+    from repro_torch.comm import DEFAULT_BUCKET_BYTES
+    from repro_torch.comm.bucket import BucketLayout
+    from repro_torch.models import build
+    from repro_torch.tree import leaves
+    tmpl = build(cfg, device="meta").init_train()
+    lay = BucketLayout.build(tmpl, lead_axes=0, uniform=True,
+                             bucket_bytes=DEFAULT_BUCKET_BYTES)
+    padded = sum(b.padded_size for b in lay.buckets) * 4
+    per_leaf = sum(x.numel() for x in leaves(tmpl)) * 4
+    return lay.n_buckets, 2 * n_learners * padded, 2 * n_learners * per_leaf
+
+
+def lm_parts(torch, bundle, plan, state, rb):
+    """The parts of a round, each across a synchronize: one SGD step on all
+    learners, and one fire of each plan level on the trained state."""
+    from repro_torch.comm import reduce_with
+    from repro_torch.core.hier_avg import make_sgd_step
+    from repro_torch.core.topology import average_over
+    from repro_torch.optim import sgd
+    step_batch = {k: v[(0,) * len(plan.batch_dims)] for k, v in rb.items()}
+    step = make_sgd_step(bundle.loss_fn, sgd(0.1))
+    parts = {"step": wall_ms(torch, lambda: step(state, step_batch), 2)}
+    for lvl in plan.levels:
+        cs = state.comm_state[lvl.name] if lvl.reducer.stateful else ()
+        parts[lvl.name] = wall_ms(torch, lambda lvl=lvl, cs=cs: reduce_with(
+            lvl.reducer, lambda t, cf=None, lvl=lvl: average_over(
+                t, lvl.axes), state.params, cs), 2)
+    return parts
+
+
+def compare_params(torch, pk, pp):
+    """Leaf by leaf on the card: (max |kernel - plain| / max|plain| of the
+    leaf, coordinates beyond LM_PARAM_TOL of their leaf's max, all
+    coordinates)."""
+    worst, beyond, total = 0.0, 0, 0
+    for a, b in zip(pk, pp):
+        a, b = a.cuda(), b.cuda()
+        d = (a - b).abs()
+        scale = max(b.abs().max().item(), 1e-30)
+        worst = max(worst, d.max().item() / scale)
+        beyond += int((d > LM_PARAM_TOL * scale).sum())
+        total += d.numel()
+    return worst, beyond, total
+
+
+def lm_phase(torch, *, label, arch, n_layers, hier, batch, seq, rounds,
+             counters, check):
+    """Train ``rounds`` rounds at P = 4 as (1, 2, 2), sgd(0.1), ``batch``
+    chains of ``seq`` tokens per learner per step, eval loss of the
+    averaged model after each round on 4 fixed chains; then the round's
+    parts, 1 round kernel-vs-plain from one converted state, and a
+    profiled round.  Returns the launch counts of the trained rounds."""
+    from repro_torch.convert import (train_state_from_jax,
+                                     train_state_to_numpy)
+    from repro_torch.core.hier_avg import init_state, make_hier_round
+    from repro_torch.core.topology import HierTopology, unstack_first
+    from repro_torch.data.loader import HierDataLoader
+    from repro_torch.optim import sgd
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, bundle, sample, floor = lm_setup(torch, arch, n_layers, seq)
+    topo = HierTopology(1, 2, 2)
+    plan = hier.resolved_plan
+    loader = HierDataLoader(sample, topo=topo, hier=hier,
+                            per_learner_batch=batch, seed=0, device="cuda")
+    eval_batch = sample(torch.Generator(device="cuda").manual_seed(1), 4)
+    rnd = make_hier_round(bundle.loss_fn, sgd(0.1), hier)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(topo, bundle.init_train, sgd(0.1),
+                       torch.Generator(device="cuda").manual_seed(0),
+                       plan=plan, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p[0, 0, 0].numel() for p in leaves(state.params))
+    for fn in counters.values():
+        fn.launches = 0
+    walls, losses, evals = [], [], []
+    for _ in range(rounds):
+        rb = loader.next_round()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = rnd(state, rb)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        with torch.no_grad():
+            evals.append(bundle.loss_fn(unstack_first(state.params),
+                                        eval_batch)[0].item())
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (np_isfinite(losses) and np_isfinite(evals)):
+        fail(f"{label}: losses not finite: {losses} {evals}")
+    if not evals[-1] < evals[0]:
+        fail(f"{label}: eval loss did not fall: {evals}")
+    check(launches, cfg, hier, rounds)
+
+    parts = lm_parts(torch, bundle, plan, state, rb)
+    print(f"{label} ({n_params} params per learner, {cfg.n_layers} of "
+          f"{LM_FULL_DEPTH[arch]} layers, widths as published) P=4 (1, 2, 2)"
+          f" plan {plan.describe()} sgd(0.1), {batch} x {seq} tokens per "
+          f"learner per step of the {LM_MARKOV_VOCAB}-token Markov chain "
+          f"(floor {floor:.4f} nats): init_s={init_s:.2f} rounds={rounds} "
+          f"train_loss={fmt(losses)} eval_loss={fmt(evals)} round_wall_ms="
+          f"{fmt(walls)} step_wall_ms={parts['step']:.3f} "
+          + " ".join(f"{lvl.name}_fire_ms={parts[lvl.name]:.3f}"
+                     for lvl in plan.levels)
+          + f" peak_mem_gib={peak:.2f} launches={launches}")
+
+    # kernel against plain: 1 round from one converted state, same batch
+    rb = loader.next_round()
+    np_state = train_state_to_numpy(state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for impl in ("kernel", "plain"):
+        _, b_impl, _, _ = lm_setup(torch, arch, n_layers, seq, impl=impl)
+        r_impl = make_hier_round(b_impl.loss_fn, sgd(0.1), hier)
+        st = train_state_from_jax(np_state, device="cuda")
+        t0 = time.perf_counter()
+        st, m = r_impl(st, rb)
+        torch.cuda.synchronize()
+        out[impl] = (m["loss"].item(), (time.perf_counter() - t0) * 1e3,
+                     [p.cpu() for p in leaves(st.params)])
+        del st, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lk, wk, pk), (lp, wp, pp) = out["kernel"], out["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst, beyond, total = compare_params(torch, pk, pp)
+    if loss_rel > LM_LOSS_TOL or beyond > LM_SWAP_FRAC * total:
+        fail(f"{label} kernel vs plain round: loss {loss_rel:.3e} (limit "
+             f"{LM_LOSS_TOL}), {beyond} of {total} params beyond "
+             f"{LM_PARAM_TOL} of their leaf's max (limit "
+             f"{LM_SWAP_FRAC} of them)")
+    print(f"{label} kernel vs plain: 1 round from one converted state: "
+          f"loss {lk:.6f} vs {lp:.6f} (rel {loss_rel:.3e}, limit "
+          f"{LM_LOSS_TOL}); params max rel {worst:.3e}, {beyond} of {total} "
+          f"coordinates beyond {LM_PARAM_TOL} of their leaf's max (limit "
+          f"{LM_SWAP_FRAC} of them); round_wall_ms kernel={wk:.1f} "
+          f"plain={wp:.1f}")
+    del out, pk, pp
+    st = train_state_from_jax(np_state, device="cuda")
+    del np_state
+    gc.collect()
+    profile_round(torch, rnd, st, rb, f"{label} (one round)", LM_CLASSES)
+    del st, rb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_rwkv_launches(launches, cfg, hier, rounds):
+    steps = hier.steps_per_round * rounds
+    want = {"rwkv6_wkv_forward": cfg.n_layers * (steps + rounds),
+            "rwkv6_wkv_backward": cfg.n_layers * steps,
+            "topk_compress": 25 * rounds,
+            "flash_attention_forward": 0, "flash_attention_backward": 0}
+    if launches != want:
+        fail(f"rwkv launches {launches} != {want} (layers x (steps + "
+             f"evals), layers x steps, 25 leaves x global fires)")
+
+
+def check_dense_launches(launches, cfg, hier, rounds):
+    steps = hier.steps_per_round * rounds
+    want = {"flash_attention_forward": cfg.n_layers * (steps + rounds),
+            "flash_attention_backward": cfg.n_layers * steps,
+            "rwkv6_wkv_forward": 0, "rwkv6_wkv_backward": 0,
+            "topk_compress": 0}
+    if launches != want:
+        fail(f"dense launches {launches} != {want} (layers x (steps + "
+             f"evals), layers x steps)")
+
+
+def phase_lm(torch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import HierAvgParams
+    from repro_torch.launch import train as train_cli
+    counters = lm_counters()
+    rwkv_hier = HierAvgParams(plan=LM_RWKV_PLAN, bucket_bytes=0)
+    n_buckets, padded, per_leaf = padded_bucket_bytes(
+        torch, dataclasses.replace(get_config("rwkv6-1.6b"),
+                                   n_layers=RWKV_LAYERS), 4)
+    print(f"phase 12 padded buckets: default bucketing of rwkv6-1.6b at "
+          f"{RWKV_LAYERS} layers packs {n_buckets} uniform buckets, so the "
+          f"top-k EF ref/err at 4 learners would take {padded} B against "
+          f"{per_leaf} B per leaf (meta tensors; not run)")
+    rwkv = lm_phase(torch, label="phase 12 train rwkv6-1.6b", arch="rwkv6-1.6b",
+                    n_layers=RWKV_LAYERS, hier=rwkv_hier, batch=2, seq=512,
+                    rounds=LM_ROUNDS, counters=counters,
+                    check=check_rwkv_launches)
+    dense = lm_phase(torch, label="phase 13 train starcoder2-15b",
+                     arch="starcoder2-15b", n_layers=DENSE_LAYERS,
+                     hier=HierAvgParams(k1=2, k2=4), batch=1, seq=1024,
+                     rounds=LM_ROUNDS, counters=counters,
+                     check=check_dense_launches)
+
+    # the training CLI on the card (reduced, as the reference's always is)
+    fwd = counters["rwkv6_wkv_forward"]
+    fwd.launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(["--arch", "rwkv6-1.6b", "--rounds", "2", "--learners",
+                    "4", "--s", "2", "--batch", "2", "--seq", "64"])
+    if fwd.launches <= 0:
+        fail("the training CLI launched no WKV kernel")
+    print(f"phase 13 cli: launch.train.main --arch rwkv6-1.6b (reduced) "
+          f"--rounds 2 --learners 4 --seq 64 on the card in "
+          f"{time.perf_counter() - t0:.2f}s, {fwd.launches} WKV forward "
+          f"launches")
+    return rwkv, dense
+
+
+
 def np_isfinite(a) -> bool:
     import numpy as np
     return bool(np.isfinite(np.asarray(a)).all())
@@ -1429,6 +2059,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     pack, unpack, qr = phase_codecs(torch)
     codec_launches = phase_codec_train(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wkv_fwd, wkv_bwd = phase_wkv(torch)
+    attn_fwd, attn_bwd = phase_attention(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv_launches, dense_launches = phase_lm(torch)
 
     def entry(name, source, replaces, launches, numbers):
         return {"name": name, "route": "cuda",
@@ -1448,7 +2085,19 @@ def main() -> None:
               codec_launches["qint8_unpack"], unpack),
         entry("batched_qr", "batched_qr.cu",
               "src/repro/kernels/batched_qr.py:78",
-              codec_launches["batched_qr"], qr)]}
+              codec_launches["batched_qr"], qr),
+        entry("rwkv6_wkv_forward", "rwkv6_wkv.cu",
+              "src/repro/kernels/rwkv6_wkv.py:69",
+              rwkv_launches["rwkv6_wkv_forward"], wkv_fwd),
+        entry("rwkv6_wkv_backward", "rwkv6_wkv.cu",
+              "src/repro/kernels/rwkv6_wkv.py:69",
+              rwkv_launches["rwkv6_wkv_backward"], wkv_bwd),
+        entry("flash_attention_forward", "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:99",
+              dense_launches["flash_attention_forward"], attn_fwd),
+        entry("flash_attention_backward", "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:99",
+              dense_launches["flash_attention_backward"], attn_bwd)]}
     print(smi_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

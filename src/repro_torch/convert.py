@@ -7,6 +7,9 @@ params)``) and returns a state dict for the port's model
 layer leaves are split per layer (``layers/attn/wq`` row ``i`` becomes
 ``layers.<i>.attn.wq``).
 
+``train_params_from_jax(np_params, cfg)`` takes the same pytree as the
+LM training parameters of the port (dense GQA decoders and the RWKV-6
+LM), which keep the reference's stacked ``[L, ...]`` layer leaves.
 ``tree_from_numpy`` converts any nested dict/list tree of numpy arrays
 (the ResNet and MLP classifier params) leaf by leaf, keeping its
 structure; ``train_state_from_jax`` carries a whole Hier-AVG
@@ -154,3 +157,20 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig, *,
         else:
             out[path] = _to_tensor(leaf, device)
     return out
+
+
+def train_params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig, *,
+                          device="cuda") -> Dict[str, Any]:
+    """The reference's LM parameter pytree (numpy leaves) -> the port's
+    training tree (``ModelBundle.init_train``'s layout): the same keys and
+    stacked ``[L, ...]`` layer leaves, so the leaves come in
+    ``jax.tree.leaves`` order."""
+    if cfg.family != "ssm":
+        reason = unsupported_reason(cfg)
+        if reason:
+            raise NotImplementedError(f"{cfg.name}: {reason}")
+    for path, leaf in _leaves(np_params.get("layers", {}), "layers."):
+        if np.shape(leaf)[:1] != (cfg.n_layers,):
+            raise ValueError(f"{path}: stacked {np.shape(leaf)}, config has "
+                             f"{cfg.n_layers} layers")
+    return tree_from_numpy(np_params, device=device)

@@ -2,14 +2,17 @@
 :class:`~repro_torch.core.plan.ReductionPlan` (port of
 ``repro/core/hier_avg.py``).
 
-A round keeps the reference's nest of scans, as Python loops — one loop
-per plan level, innermost first:
+A round runs the reference's nest of scans, one per plan level,
+innermost first:
 
     level 0:  p_1 SGD steps, then the level-0 reduction
     level i:  (p_{i+1}/p_i) runs of level i-1, then the level-i reduction
 
-so an inner level's reduction also runs at an outer boundary (for top-k
-that updates the inner level's EF state: it is not a no-op).  The paper's
+as one Python loop over the round's steps, in which level i reduces
+after every p_{i+1} steps (the product of the round batch's step dims
+from level i's inward), innermost first; so an inner level's reduction
+also runs at an outer boundary (for top-k that updates the inner level's
+EF state: it is not a no-op).  The paper's
 Algorithm 1 is the 2-level plan ``local@K1 / global@K2``.
 
 Parameters/optimizer state live in the stacked-learner layout
@@ -23,6 +26,7 @@ in place, so the caller's state stays valid.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -250,28 +254,29 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
                              microbatch=microbatch)
     _reduce = _make_reduce(sync_opt_state)
     last = len(p.levels) - 1
-
-    def make_phase(inner, level: ReductionLevel, skipped: bool):
-        """run ``inner`` over this level's leading batch dim, then apply
-        this level's reduction."""
-        def phase(state: TrainState, batches):
-            ms = []
-            for i in range(leaves(batches)[0].shape[0]):
-                state, m = inner(state, tree_map(lambda x: x[i], batches))
-                ms.append(m)
-            if not skipped:
-                state = _reduce(level, state)
-            return state, _stack(ms)
-        return phase
-
-    phase = sgd_step
-    for i, level in enumerate(p.levels):
-        phase = make_phase(phase, level, skip_local and i < last)
+    n_dims = len(p.batch_dims)
 
     def round_fn(state: TrainState, round_batch):
-        state, metrics = phase(state, round_batch)
-        # metrics leaves: [*batch_dims, pods, G, S] -> scalar means
-        return state, tree_map(lambda m: m.mean(), metrics)
+        # the loop nest, flattened: level i runs over the round batch's
+        # dim n-1-i, so it reduces after every prod(dims[n-1-i:]) steps,
+        # innermost first.  One frame holds the running state, so a round
+        # keeps no earlier state alive but the caller's (a nest of calls
+        # would hold one state per level)
+        dims = tuple(leaves(round_batch)[0].shape[:n_dims])
+        every = [math.prod(dims[n_dims - 1 - i:]) for i in range(n_dims)]
+        steps = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[n_dims:])),
+                         round_batch)
+        ms = []
+        for t in range(math.prod(dims)):
+            state, m = sgd_step(state, tree_map(lambda x: x[t], steps))
+            ms.append(m)
+            for i, level in enumerate(p.levels):
+                if (t + 1) % every[i]:
+                    break
+                if not (skip_local and i < last):
+                    state = _reduce(level, state)
+        # metrics leaves: [steps, pods, G, S] -> scalar means
+        return state, tree_map(lambda m: m.mean(), _stack(ms))
 
     return round_fn
 

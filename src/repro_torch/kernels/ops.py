@@ -100,3 +100,184 @@ def batched_qr(p: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         return kref.batched_qr_plain(p)
     from repro_torch.kernels.batched_qr import batched_qr as bqr
     return bqr(p)
+
+
+# --------------------------------------------------------------------- #
+# differentiable kernels: attention and WKV6, forward and backward
+#
+# Each is a pair of autograd Functions: the forward, whose backward calls
+# the second (the backward kernel).  Both have a ``vmap`` rule that moves
+# the vmapped dim to the front and folds it into the batch dim, so the
+# trainer's ``vmap(grad(loss))`` over learners launches one kernel for
+# all learners.  The backward is a Function of its own, not a raw call,
+# because under ``grad`` the tensors that reach ``backward`` are batched
+# wrappers without storage: only a Function's vmap rule unwraps them.
+# Residual outputs (log-sum-exp, state checkpoints) are not
+# differentiable.  Under ``plain`` both run the plain versions of
+# kernels/ref.py through the same Functions and rules.
+
+
+def _fold(info, in_dims, args):
+    """Move each tensor's vmapped dim to the front (broadcasting
+    unbatched ones) and fold it into the next dim."""
+    n = info.batch_size
+    out = []
+    for a, d in zip(args, in_dims):
+        if isinstance(a, torch.Tensor):
+            a = a.expand(n, *a.shape) if d is None else a.movedim(d, 0)
+            a = a.reshape((n * a.shape[1],) + tuple(a.shape[2:]))
+        out.append(a)
+    return out
+
+
+def _unfold(n, outs):
+    return tuple(o.reshape((n, o.shape[0] // n) + tuple(o.shape[1:]))
+                 for o in outs)
+
+
+class _AttentionBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(q, k, v, o, lse, do, causal, window, scale, impl):
+        if impl == "plain":
+            return kref.flash_attention_backward_plain(
+                q, k, v, o, lse, do, causal=causal, window=window,
+                scale=scale)
+        from repro_torch.kernels.flash_attention import \
+            flash_attention_backward
+        return flash_attention_backward(
+            q.contiguous(), k.contiguous(), v.contiguous(), o.contiguous(),
+            lse.contiguous(), do.contiguous(), causal=causal,
+            window=window, scale=scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        outs = _AttentionBackward.apply(*_fold(info, in_dims, args))
+        return _unfold(info.batch_size, outs), (0, 0, 0)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(q, k, v, causal, window, scale, impl):
+        if impl == "plain":
+            return kref.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window, scale=scale)
+        from repro_torch.kernels.flash_attention import flash_attention_fwd
+        return flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window, scale=scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale, impl = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, scale, impl)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _AttentionBackward.apply(q, k, v, o, lse, do,
+                                              *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        outs = _Attention.apply(*_fold(info, in_dims, args))
+        return _unfold(info.batch_size, outs), (0, 0)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """Causal / sliding-window GQA attention, differentiable.
+
+    q [B, S, Hq, D]; k/v [B, T, Hkv, D] -> [B, S, Hq, D] in q's type,
+    with the semantics of the reference's ``flash_attention_ref``.  The
+    kernels' launch counts are ``kernels.flash_attention.
+    flash_attention_fwd.launches`` and ``.flash_attention_backward.
+    launches``; the kernel takes ``causal=True`` only.
+    """
+    if scale is None:
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+    out, _ = _Attention.apply(q, k, v, bool(causal), int(window),
+                              float(scale), _resolve(impl, q))
+    return out
+
+
+class _WKVBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(r, k, v, w, u, ckpt, dy, dsT, impl):
+        if impl == "plain":
+            return kref.rwkv6_wkv_backward_plain(r, k, v, w, u, ckpt, dy,
+                                                 dsT)
+        from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_backward
+        return rwkv6_wkv_backward(*(x.contiguous() for x in
+                                    (r, k, v, w, u, ckpt, dy, dsT)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        outs = _WKVBackward.apply(*_fold(info, in_dims, args))
+        return _unfold(info.batch_size, outs), (0,) * 6
+
+
+class _WKV(torch.autograd.Function):
+    @staticmethod
+    def forward(r, k, v, w, u, s0, impl):
+        if impl == "plain":
+            return kref.rwkv6_wkv_forward_plain(r, k, v, w, u, s0)
+        from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_forward
+        return rwkv6_wkv_forward(*(x.contiguous() for x in
+                                   (r, k, v, w, u, s0)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        r, k, v, w, u, s0, impl = inputs
+        ckpt = output[2]
+        ctx.mark_non_differentiable(ckpt)
+        ctx.save_for_backward(r, k, v, w, u, ckpt)
+        ctx.impl = impl
+
+    @staticmethod
+    def backward(ctx, dy, dsT, _dckpt):
+        grads = _WKVBackward.apply(*ctx.saved_tensors, dy, dsT, ctx.impl)
+        return (*grads, None)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        outs = _WKV.apply(*_fold(info, in_dims, args))
+        return _unfold(info.batch_size, outs), (0, 0, 0)
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
+              impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 WKV recurrence, differentiable in every input.
+
+    r/k/v/w [B, S, H, D]; u [H, D]; state [B, H, D, D] (indexed [j, i])
+    -> (y [B, S, H, D] in r's type, final state fp32), with the semantics
+    of the reference's ``rwkv6_wkv_ref``.  Inputs of mixed types are
+    promoted to fp32 first (the oracle computes in fp32).  ``u`` goes to
+    the kernel broadcast per batch row, so under the trainer's vmap each
+    learner keeps its own; its gradient is summed over the batch by the
+    broadcast's own backward.  The kernels' launch counts are
+    ``kernels.rwkv6_wkv.rwkv6_wkv_forward.launches`` and
+    ``.rwkv6_wkv_backward.launches``.
+    """
+    dtype = r.dtype
+    if not k.dtype == v.dtype == w.dtype == dtype:
+        r, k, v, w = (x.float() for x in (r, k, v, w))
+    b, _, h, d = r.shape
+    ub = u.float().expand(b, h, d)
+    y, st, _ = _WKV.apply(r, k, v, w, ub, state.float(),
+                          _resolve(impl, r))
+    return y.to(dtype), st

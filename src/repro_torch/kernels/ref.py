@@ -181,3 +181,175 @@ def batched_qr_plain(p: torch.Tensor, passes: int = 2) -> torch.Tensor:
                           torch.zeros_like(nrm2))
         q[:, :, j:j + 1] = v * inv
     return q.reshape(p.shape).to(p.dtype)
+
+
+# --------------------------------------------------------------------- #
+# causal / sliding-window GQA attention, forward and backward
+
+
+def _attn_scores(q, k, *, causal: bool, window: int, scale: float):
+    """fp32 scores [B, Hkv, G, S, T], masked to NEG_INF, and the grouped
+    fp32 query [B, S, Hkv, G, D]."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    if causal:
+        qpos = torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(t, device=q.device)[None, :]
+        m = kpos <= qpos
+        if window:
+            m &= (qpos - kpos) < window
+        scores = torch.where(m, scores, torch.full_like(scores, NEG_INF))
+    return scores, qg
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention with the semantics of the reference's
+    ``flash_attention_ref``: q [B, S, Hq, D], k/v [B, T, Hkv, D] with
+    Hq % Hkv == 0, query head h attending kv head h // (Hq / Hkv); under
+    ``causal`` key j is visible to query i iff j <= i and (window == 0 or
+    i - j < window), masked scores are -1e30 (``window`` applies only
+    with ``causal``, as in the oracle).  Returns (out [B, S, Hq, D] in q's
+    type, the fp32 log-sum-exp of each row's scores [B, Hq, S]: the
+    residual the backward recomputes the probabilities from)."""
+    b, s, hq, d = q.shape
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    scores, _ = _attn_scores(q, k, causal=causal, window=window,
+                             scale=scale)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    lse = torch.logsumexp(scores, dim=-1).reshape(b, hq, s)
+    return out.reshape(b, s, hq, d).to(q.dtype), lse
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, *,
+                                   causal: bool = True, window: int = 0,
+                                   scale: Optional[float] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Gradients of :func:`flash_attention_plain`'s output, in fp32:
+
+        P = exp(S - lse);  dV = P^T dO;  dP = dO V^T;
+        dS = P * (dP - rowsum(dO * O));  dQ = scale dS K;
+        dK = scale dS^T Q
+
+    with dK and dV summed over the Hq / Hkv query heads of each kv head.
+    ``o`` and ``lse`` are the forward's outputs.  Returns (dq, dk, dv) in
+    the types of q, k and v."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    scores, qg = _attn_scores(q, k, causal=causal, window=window,
+                              scale=scale)
+    p = torch.exp(scores - lse.reshape(b, hkv, g, s)[..., None])
+    dog = do.reshape(b, s, hkv, g, d).float()
+    rows = (dog * o.reshape(b, s, hkv, g, d).float()).sum(-1)  # [b,s,k,g]
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.float())
+    ds = p * (dp - rows.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    return (dq.reshape(b, s, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+# --------------------------------------------------------------------- #
+# RWKV-6 WKV recurrence, forward and backward
+
+WKV_CHUNK = 64             # steps between the forward's state checkpoints
+
+
+def _per_batch_u(u: torch.Tensor, b: int) -> torch.Tensor:
+    """u [H, D] (the reference's) or [B, H, D] (per batch row, as the
+    kernel takes it under the trainer's vmap) -> fp32 [B, H, D]."""
+    return (u if u.dim() == 3 else u.expand(b, *u.shape)).float()
+
+
+def rwkv6_wkv_forward_plain(r, k, v, w, u, state
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The time loop of the reference's ``rwkv6_wkv_ref`` in fp32:
+
+        y_t[i]  = sum_j r_t[j] (S[j,i] + u[j] k_t[j] v_t[i])
+        S'[j,i] = w_t[j] S[j,i] + k_t[j] v_t[i]
+
+    r/k/v/w [B, S, H, D]; u [H, D] or [B, H, D]; state [B, H, D, D]
+    (indexed [j, i]).  Returns (y [B, S, H, D] in r's type, the final
+    state fp32, and the state at the start of every WKV_CHUNK steps, fp32
+    [B, H, ceil(S / WKV_CHUNK), D, D]: the backward's checkpoints)."""
+    b, s, h, d = r.shape
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = _per_batch_u(u, b)[..., None]                      # [B,H,D,1]
+    st = state.float()
+    ys, ckpts = [], []
+    for t in range(s):
+        if t % WKV_CHUNK == 0:
+            ckpts.append(st)
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # [B,H,D,D]
+        ys.append(torch.einsum("bhj,bhji->bhi", rf[:, t], st + uf * kv))
+        st = wf[:, t, :, :, None] * st + kv
+    return torch.stack(ys, 1).to(r.dtype), st, torch.stack(ckpts, 2)
+
+
+def rwkv6_wkv_plain(r, k, v, w, u, state
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, final state) of :func:`rwkv6_wkv_forward_plain`: the
+    reference's ``rwkv6_wkv_ref``."""
+    y, st, _ = rwkv6_wkv_forward_plain(r, k, v, w, u, state)
+    return y, st
+
+
+def rwkv6_wkv_backward_plain(r, k, v, w, u, ckpt, dy, dsT):
+    """Gradients of (y, final state) by the explicit reverse recurrence.
+
+    With G the adjoint of the state, from G = dsT, for t = S-1 ... 0 (the
+    forward state S_t recomputed from the chunk's checkpoint, never from
+    S_{t+1}, since w may be near 0):
+
+        dr_t[j] = sum_i dy_t[i] (S_t[j,i] + u[j] k_t[j] v_t[i])
+        du[j]  += r_t[j] k_t[j] sum_i dy_t[i] v_t[i]
+        dk_t[j] = u[j] r_t[j] sum_i dy_t[i] v_t[i] + sum_i G[j,i] v_t[i]
+        dv_t[i] = dy_t[i] sum_j r_t[j] u[j] k_t[j] + sum_j G[j,i] k_t[j]
+        dw_t[j] = sum_i G[j,i] S_t[j,i]
+        G[j,i]  = w_t[j] G[j,i] + r_t[j] dy_t[i]      (after the lines above)
+
+    and the initial state's gradient is the last G.  ``ckpt`` is the
+    forward's [B, H, NC, D, D].  Returns (dr, dk, dv, dw in the inputs'
+    types, du fp32 [B, H, D] per batch row, ds0 fp32 [B, H, D, D])."""
+    b, s, h, d = r.shape
+    rf, kf, vf, wf, dyf = (x.float() for x in (r, k, v, w, dy))
+    uf = _per_batch_u(u, b)
+    grads = [torch.empty((b, s, h, d), device=r.device) for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((b, h, d), device=r.device)
+    g = dsT.float()
+    for c in reversed(range(ckpt.shape[2])):
+        t0, t1 = c * WKV_CHUNK, min(s, (c + 1) * WKV_CHUNK)
+        st = ckpt[:, :, c].float()
+        states = []
+        for t in range(t0, t1):
+            states.append(st)
+            st = wf[:, t, :, :, None] * st + \
+                kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        for t in reversed(range(t0, t1)):
+            st = states[t - t0]
+            r_t, k_t, v_t, w_t, dy_t = (x[:, t] for x in (rf, kf, vf, wf,
+                                                          dyf))
+            dyv = (dy_t * v_t).sum(-1, keepdim=True)          # [B,H,1]
+            ruk = (r_t * uf * k_t).sum(-1, keepdim=True)
+            dr[:, t] = torch.einsum("bhji,bhi->bhj", st, dy_t) \
+                + uf * k_t * dyv
+            du += r_t * k_t * dyv
+            dk[:, t] = uf * r_t * dyv + torch.einsum("bhji,bhi->bhj", g, v_t)
+            dv[:, t] = dy_t * ruk + torch.einsum("bhji,bhj->bhi", g, k_t)
+            dw[:, t] = (g * st).sum(-1)
+            g = w_t[..., None] * g + r_t[..., None] * dy_t[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du, g)

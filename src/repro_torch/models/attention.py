@@ -1,19 +1,23 @@
-"""GQA attention for the paged serving path (PyTorch port of the GQA half
-of ``repro/models/attention.py``).
+"""GQA attention (PyTorch port of the GQA half of
+``repro/models/attention.py``).
 
-Ported: the masked attention core, GQA projections, and the paged cache
-(``init_paged_kv``, ``paged_slot_coords``, ``gqa_decode_paged``,
-``gqa_prefill_paged_chunk``).  The dense-cache decode, the chunked
-train-time attend and MLA come with later slices (ROADMAP Queue 1).
+Ported: the training attention (``full_attention``, which dispatches to
+``kernels.ops.flash_attention`` under the reference's condition, and
+``gqa_attention``), the masked attention core, GQA projections, and the
+paged cache (``init_paged_kv``, ``paged_slot_coords``,
+``gqa_decode_paged``, ``gqa_prefill_paged_chunk``).  The dense-cache
+decode and MLA come with later slices (ROADMAP Queue 1).
 
-The reference returns a new pool from every step (JAX donates the old
-one); the port writes into the per-layer pool in place with
-``index_put_`` and returns the same tensors.
+GQA projections are leaves named as the reference's: attributes of the
+serving path's :class:`GQA` module, or keys of the training path's dict
+(:func:`gqa_params`).  The reference returns a new pool from every step
+(JAX donates the old one); the port writes into the per-layer pool in
+place with ``index_put_`` and returns the same tensors.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -60,8 +64,8 @@ def causal_mask(s: int, t: int, window: int = 0, q_offset: int = 0, *,
     return m
 
 
-def full_attention(q, k, v, *, window: int = 0, q_offset: int = 0,
-                   scale: Optional[float] = None):
+def masked_attention(q, k, v, *, window: int = 0, q_offset: int = 0,
+                     scale: Optional[float] = None):
     """Causal attention through the masked core: the path the reference's
     ``full_attention`` takes in its paged prefill, where ``q_offset`` is
     traced.  Query i (position q_offset + i) sees key j iff j <= pos and
@@ -74,9 +78,44 @@ def full_attention(q, k, v, *, window: int = 0, q_offset: int = 0,
     return _gqa_scores_attend(q, k, v, m.expand(b, 1, s, t), scale)
 
 
+def full_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                   q_offset: int = 0, extra_mask=None,
+                   scale: Optional[float] = None, impl: str = "auto"):
+    """Dispatchable attention.  Causal, without ``extra_mask`` and at a
+    static ``q_offset`` of 0 (the reference's condition for its Pallas
+    kernel) it is ``kernels.ops.flash_attention`` under ``impl``
+    ("auto": the CUDA kernels for CUDA tensors, forward and backward); at
+    another offset, the masked core.  Non-causal and extra-masked
+    attention (the encoder-decoder's cross-attention) are not ported
+    yet: ROADMAP Queue 1 item 9."""
+    if not causal or extra_mask is not None:
+        raise NotImplementedError("non-causal or extra-masked attention is "
+                                  "not ported yet: ROADMAP Queue 1 item 9")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if isinstance(q_offset, int) and q_offset == 0:
+        return kops.flash_attention(q, k, v, causal=True, window=window,
+                                    scale=float(scale), impl=impl)
+    return masked_attention(q, k, v, window=window, q_offset=q_offset,
+                            scale=scale)
+
+
 # ===================================================================== #
 # GQA
 # ===================================================================== #
+
+def gqa_params(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
+               dtype=torch.float32, *, device,
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+    """The reference's GQA leaves ``wq, wk, wv, wo``, each
+    ``[d_in, d_out]``."""
+    kw = dict(device=device, generator=generator)
+    return {"wq": dense_init(d_model, n_heads * head_dim, dtype, **kw),
+            "wk": dense_init(d_model, n_kv_heads * head_dim, dtype, **kw),
+            "wv": dense_init(d_model, n_kv_heads * head_dim, dtype, **kw),
+            "wo": dense_init(n_heads * head_dim, d_model, dtype, **kw)}
+
 
 class GQA(nn.Module):
     """Projections named as the reference's leaves, ``[d_in, d_out]``."""
@@ -85,15 +124,10 @@ class GQA(nn.Module):
                  head_dim: int, dtype=torch.float32, *, device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        kw = dict(device=device, generator=generator)
-        self.wq = nn.Parameter(dense_init(d_model, n_heads * head_dim, dtype,
-                                          **kw))
-        self.wk = nn.Parameter(dense_init(d_model, n_kv_heads * head_dim,
-                                          dtype, **kw))
-        self.wv = nn.Parameter(dense_init(d_model, n_kv_heads * head_dim,
-                                          dtype, **kw))
-        self.wo = nn.Parameter(dense_init(n_heads * head_dim, d_model, dtype,
-                                          **kw))
+        for name, w in gqa_params(d_model, n_heads, n_kv_heads, head_dim,
+                                  dtype, device=device,
+                                  generator=generator).items():
+            setattr(self, name, nn.Parameter(w))
 
 
 def gqa_init(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
@@ -103,12 +137,31 @@ def gqa_init(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
                generator=generator)
 
 
-def _project_qkv(p: GQA, x, n_heads, n_kv_heads, head_dim):
+def _w(p, name: str) -> torch.Tensor:
+    """Leaf ``name`` of a module's attributes or of a dict of leaves."""
+    return p[name] if isinstance(p, Mapping) else getattr(p, name)
+
+
+def _project_qkv(p, x, n_heads, n_kv_heads, head_dim):
     b, s, _ = x.shape
-    q = (x @ p.wq).reshape(b, s, n_heads, head_dim)
-    k = (x @ p.wk).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ p.wv).reshape(b, s, n_kv_heads, head_dim)
+    q = (x @ _w(p, "wq")).reshape(b, s, n_heads, head_dim)
+    k = (x @ _w(p, "wk")).reshape(b, s, n_kv_heads, head_dim)
+    v = (x @ _w(p, "wv")).reshape(b, s, n_kv_heads, head_dim)
     return q, k, v
+
+
+def gqa_attention(p: Mapping[str, torch.Tensor], x, cos, sin, *,
+                  n_heads: int, n_kv_heads: int, head_dim: int,
+                  causal: bool = True, window: int = 0,
+                  impl: str = "auto") -> torch.Tensor:
+    """Train/prefill full-sequence path.  cos/sin [B, S, head_dim // 2]."""
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    if cos is not None:
+        q = apply_rope(q, cos[:, :, None], sin[:, :, None])
+        k = apply_rope(k, cos[:, :, None], sin[:, :, None])
+    out = full_attention(q, k, v, causal=causal, window=window, impl=impl)
+    return out.reshape(x.shape[0], x.shape[1], n_heads * head_dim) \
+        @ _w(p, "wo")
 
 
 # --------------------------- paged cache ------------------------------ #
@@ -200,6 +253,7 @@ def gqa_prefill_paged_chunk(p: GQA, x, pages: Pages, block_tables, base,
     _write_pages(pages, page_ids, offs, k, v)
     kd = kref.gather_pages(pages["k"], tbl).to(q.dtype)          # [B,T,Hkv,D]
     vd = kref.gather_pages(pages["v"], tbl).to(q.dtype)
-    out = full_attention(q, kd, vd, window=window, q_offset=base)
+    # the reference's base is traced here, so it never takes the kernel
+    out = masked_attention(q, kd, vd, window=window, q_offset=base)
     out = out.reshape(b, c, n_heads * head_dim) @ p.wo
     return out, pages

@@ -11,10 +11,14 @@ Philox differ): parity tests carry the reference's weights across with
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.tree import leaves, tree_map
+
+Params = Dict[str, object]
 
 # --------------------------------------------------------------------- #
 # initializers
@@ -68,6 +72,22 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     return (y * scale.float()).to(dtype)
 
 
+def layernorm_init(d: int, dtype=torch.float32, *, device) -> Params:
+    return {"bias": torch.zeros((d,), dtype=dtype, device=device),
+            "scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim in fp32 (population variance), then
+    cast back to x's type."""
+    dtype = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(dtype)
+
+
 # --------------------------------------------------------------------- #
 # activations
 # --------------------------------------------------------------------- #
@@ -116,6 +136,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(dtype)
 
 
+def text_positions(batch: int, seq: int, *, device) -> torch.Tensor:
+    """[batch, seq] int32 positions 0..seq-1."""
+    return torch.arange(seq, dtype=torch.int32, device=device).expand(batch,
+                                                                     seq)
+
+
 # --------------------------------------------------------------------- #
 # losses
 # --------------------------------------------------------------------- #
@@ -136,3 +162,25 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     loss = (nll * mask).sum() / denom
     acc = ((torch.argmax(logits, dim=-1) == labels) * mask).sum() / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+# --------------------------------------------------------------------- #
+# stacked-layer helpers
+#
+# The training parameters keep the reference's layout: a layer stack is one
+# tree whose leaves are [n_layers, ...], so per-leaf top-k selects over the
+# whole stacked leaf and the trainer sees the reference's leaves.  The
+# reference scans over the stack; the port loops.
+
+
+def stacked_init(init_one: Callable[[], Params], n_layers: int) -> Params:
+    """``init_one()`` per layer, stacked leaf by leaf on a new dim 0."""
+    layers = [init_one() for _ in range(n_layers)]
+    return tree_map(lambda *xs: torch.stack(xs), *layers)
+
+
+def scan_layers(body: Callable, x, stacked_params: Params):
+    """``x = body(x, layer_params)`` over the layers of a stacked tree."""
+    for i in range(leaves(stacked_params)[0].shape[0]):
+        x = body(x, tree_map(lambda a: a[i], stacked_params))
+    return x

@@ -1,17 +1,25 @@
-"""Decoder-LM assembly for the paged serving path (PyTorch port of
-``repro/models/transformer.py``, dense GQA family).
+"""Decoder-LM assembly (PyTorch port of ``repro/models/transformer.py``):
+the dense GQA decoders, for training and for paged serving, and the
+RWKV-6 LM for training.
 
-The reference stacks layer parameters ``[L, ...]`` and scans over them;
-the port keeps an ``nn.ModuleList`` of layers whose parameter names are
-the reference's leaf paths (``layers.<i>.attn.wq`` for ``layers/attn/wq``
-row ``i``), so ``repro_torch/convert.py`` carries weights across by
-splitting the stacks.  The paged pool is a list of per-layer
-``{"k", "v"}`` tensors, updated in place.
+Training (``init_train``, ``forward``, ``loss_fn``) keeps the reference's
+parameter tree: a dict with the reference's keys whose layer stack holds
+stacked ``[L, ...]`` leaves, so ``repro_torch.tree.leaves`` gives the
+leaves, shapes and order of ``jax.tree.leaves`` of the reference's
+``init``; the stack is looped over where the reference scans.  Attention
+and the WKV recurrence run through ``kernels/ops.py`` under ``impl``
+("auto": the CUDA kernels for CUDA tensors, forward and backward).
 
-Ported: ``init``, ``init_paged_cache``, ``prefill_paged_chunk`` and
-``decode_step_paged`` for dense GQA decoders (with or without a sliding
-window).  Training, the dense-cache serving path and the other families
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Serving keeps an ``nn.ModuleList`` of layers (``init``) whose parameter
+names are the reference's leaf paths (``layers.<i>.attn.wq`` for
+``layers/attn/wq`` row ``i``), so ``repro_torch/convert.py`` carries
+weights across by splitting the stacks; the paged pool is a list of
+per-layer ``{"k", "v"}`` tensors, updated in place.  Ported:
+``init_paged_cache``, ``prefill_paged_chunk`` and ``decode_step_paged``
+for dense GQA decoders (with or without a sliding window).  The non-paged
+prefill and decode (dense and RWKV), MoE, MLA, M-RoPE and the other
+families raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -22,17 +30,25 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import (GQA, Pages, gqa_decode_paged,
+from repro_torch.models import rwkv6 as rwk
+from repro_torch.models.attention import (GQA, Pages, gqa_attention,
+                                          gqa_decode_paged, gqa_params,
                                           gqa_prefill_paged_chunk,
                                           init_paged_kv)
-from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
-                                       rmsnorm_init, rope_cos_sin)
-from repro_torch.models.mlp import MLP, mlp_apply
+from repro_torch.models.common import (Params, dense_init, embed_init,
+                                       rmsnorm, rmsnorm_init, rope_cos_sin,
+                                       scan_layers, softmax_cross_entropy,
+                                       stacked_init, text_positions)
+from repro_torch.models.mlp import MLP, mlp_apply, mlp_params
 
 
 def unsupported_reason(cfg: ArchConfig) -> Optional[str]:
-    """Why the port cannot build ``cfg`` yet (None if it can)."""
-    if cfg.family in ("ssm", "hybrid", "audio") or cfg.is_encoder_decoder:
+    """Why the port cannot build ``cfg`` as a decoder LM yet (None if it
+    can); the RWKV family is :func:`build_rwkv_lm`'s."""
+    if cfg.family == "ssm":
+        return ("family 'ssm' is the RWKV LM (build_rwkv_lm), which trains "
+                "but does not serve yet (ROADMAP Queue 1 item 6)")
+    if cfg.family in ("hybrid", "audio") or cfg.is_encoder_decoder:
         return (f"family '{cfg.family}' is not ported yet "
                 f"(ROADMAP Queue 1: remaining model families)")
     if cfg.uses_moe:
@@ -85,6 +101,35 @@ class DecoderLM(nn.Module):
             [DecoderLayer(cfg, dtype, **kw) for _ in range(cfg.n_layers)])
 
 
+# --------------------------- training ---------------------------------- #
+
+def layer_params(cfg: ArchConfig, dtype, *, device,
+                 generator: Optional[torch.Generator]) -> Params:
+    """One dense GQA layer's leaves, keyed as the reference's."""
+    kw = dict(device=device, generator=generator)
+    return {
+        "ln1": {"scale": rmsnorm_init(cfg.d_model, dtype, device=device)},
+        "attn": gqa_params(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.resolved_head_dim, dtype, **kw),
+        "ln2": {"scale": rmsnorm_init(cfg.d_model, dtype, device=device)},
+        "ffn": mlp_params(cfg.d_model, cfg.d_ff, cfg.act, dtype, **kw),
+    }
+
+
+def layer_apply(p: Params, x, cos, sin, cfg: ArchConfig, window: int,
+                impl: str):
+    """One dense GQA layer, full sequence (training)."""
+    h = rmsnorm(p["ln1"]["scale"], x, cfg.norm_eps)
+    x = x + gqa_attention(p["attn"], h, cos, sin, n_heads=cfg.n_heads,
+                          n_kv_heads=cfg.n_kv_heads,
+                          head_dim=cfg.resolved_head_dim, window=window,
+                          impl=impl)
+    h = rmsnorm(p["ln2"]["scale"], x, cfg.norm_eps)
+    return x + mlp_apply(p["ffn"], h, cfg.act)
+
+
+# --------------------------- serving ----------------------------------- #
+
 def _layer_ffn(p: DecoderLayer, x, cfg: ArchConfig):
     h = rmsnorm(p.ln2.scale, x, cfg.norm_eps)
     return x + mlp_apply(p.ffn, h, cfg.act)
@@ -120,9 +165,15 @@ def layer_prefill_paged(p: DecoderLayer, x, pages: Pages, block_tables,
 
 @dataclasses.dataclass
 class ModelBundle:
-    """The paged-serving surface of the reference's ``ModelBundle``:
+    """The ported surface of the reference's ``ModelBundle``:
 
-      init(generator=None)                 -> DecoderLM (the params)
+      init(generator=None)       -> the serving params (DecoderLM); for
+                                    RWKV the training tree
+      init_train(generator=None) -> the training tree (stacked leaves)
+      forward(params, embeds, positions) -> (hidden [B,S,d], aux loss)
+      loss_fn(params, batch)     -> (loss, metrics)  [tokens, labels]
+      prefill(params, batch), decode_step(params, tok, cache)
+                                 -> raise until ROADMAP Queue 1 item 6
       init_paged_cache(n_pages, page_size) -> [ {"k", "v"} ] per layer
       prefill_paged_chunk(params, tokens [B,C], pages, tables, base)
           -> (logits [B,C,V], pages)
@@ -132,9 +183,31 @@ class ModelBundle:
     cfg: ArchConfig
     device: torch.device
     init: Callable
+    init_train: Optional[Callable] = None
+    forward: Optional[Callable] = None
+    loss_fn: Optional[Callable] = None
+    prefill: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
     init_paged_cache: Optional[Callable] = None
     prefill_paged_chunk: Optional[Callable] = None
     decode_step_paged: Optional[Callable] = None
+
+
+def _not_ported(what: str):
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
+                                  f"Queue 1 item 6)")
+    return refuse
+
+
+def _generator(gen, default, device) -> Optional[torch.Generator]:
+    """The caller's generator, else the bundle's, else one seeded with 0;
+    none on the meta device, where nothing is drawn (shapes only)."""
+    if gen is not None:
+        return gen
+    if default is not None or device.type == "meta":
+        return default
+    return torch.Generator(device=device).manual_seed(0)
 
 
 def _unembed(params: DecoderLM, cfg: ArchConfig, x):
@@ -145,24 +218,60 @@ def _unembed(params: DecoderLM, cfg: ArchConfig, x):
 
 def build_decoder_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
                      cache_dtype=torch.bfloat16, decode_impl: str = "auto",
-                     device="cuda",
+                     impl: str = "auto", device="cuda",
                      generator: Optional[torch.Generator] = None
                      ) -> ModelBundle:
-    """Dense GQA decoders.  ``decode_impl`` picks the paged decode
-    attention (kernels/ops.py::flash_decode: "auto" / "kernel" /
-    "plain"); it only affects ``decode_step_paged``.  The pool's dtype is
-    ``cache_dtype`` (bf16 by default, even with fp32 params)."""
+    """Dense GQA decoders.  ``impl`` picks the training attention
+    (kernels/ops.py::flash_attention: "auto" / "kernel" / "plain");
+    ``decode_impl`` the paged decode attention (kernels/ops.py::
+    flash_decode), and only affects ``decode_step_paged``.  The pool's
+    dtype is ``cache_dtype`` (bf16 by default, even with fp32 params)."""
     reason = unsupported_reason(cfg)
     if reason:
         raise NotImplementedError(f"{cfg.name}: {reason}")
     device = torch.device(device)
     hd = cfg.resolved_head_dim
+    window = cfg.sliding_window
 
     def init(gen: Optional[torch.Generator] = None) -> DecoderLM:
-        gen = gen if gen is not None else generator
-        if gen is None:
-            gen = torch.Generator(device=device).manual_seed(0)
-        return DecoderLM(cfg, param_dtype, device=device, generator=gen)
+        return DecoderLM(cfg, param_dtype, device=device,
+                         generator=_generator(gen, generator, device))
+
+    def init_train(gen: Optional[torch.Generator] = None) -> Params:
+        kw = dict(device=device,
+                  generator=_generator(gen, generator, device))
+        p: Params = {
+            "embed": embed_init(cfg.padded_vocab, cfg.d_model, param_dtype,
+                                **kw),
+            "final_norm": {"scale": rmsnorm_init(cfg.d_model, param_dtype,
+                                                 device=device)},
+        }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = dense_init(cfg.d_model, cfg.padded_vocab,
+                                      param_dtype, **kw)
+        p["layers"] = stacked_init(
+            lambda: layer_params(cfg, param_dtype, **kw), cfg.n_layers)
+        return p
+
+    def forward(params: Params, embeds, positions):
+        """embeds [B,S,d], positions [B,S] -> (hidden [B,S,d], aux)."""
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        x = scan_layers(lambda x, lp: layer_apply(lp, x, cos, sin, cfg,
+                                                  window, impl),
+                        embeds.to(param_dtype), params["layers"])
+        return (rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps),
+                torch.zeros((), device=embeds.device))
+
+    def loss_fn(params: Params, batch):
+        tokens = batch["tokens"]
+        h, _ = forward(params, params["embed"][tokens.long()],
+                       text_positions(*tokens.shape, device=tokens.device))
+        logits = h @ params["embed"].mT if cfg.tie_embeddings \
+            else h @ params["lm_head"]
+        loss, metrics = softmax_cross_entropy(logits, batch["labels"],
+                                              batch.get("mask"))
+        metrics["loss"] = loss
+        return loss, metrics
 
     def init_paged_cache(n_pages: int, page_size: int) -> List[Pages]:
         return [init_paged_kv(n_pages, page_size, cfg.n_kv_heads, hd,
@@ -199,6 +308,60 @@ def build_decoder_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
         return _unembed(params, cfg, h[:, 0]), pages
 
     return ModelBundle(cfg=cfg, device=device, init=init,
+                       init_train=init_train, forward=forward,
+                       loss_fn=loss_fn,
+                       prefill=_not_ported("the non-paged prefill"),
+                       decode_step=_not_ported("the non-paged decode step"),
                        init_paged_cache=init_paged_cache,
                        prefill_paged_chunk=prefill_paged_chunk,
                        decode_step_paged=decode_step_paged)
+
+
+# ===================================================================== #
+# RWKV-6 LM
+# ===================================================================== #
+
+def build_rwkv_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
+                  impl: str = "auto", device="cuda",
+                  generator: Optional[torch.Generator] = None
+                  ) -> ModelBundle:
+    """The RWKV-6 LM for training (``repro/models/transformer.py:513``).
+    ``impl`` picks the WKV recurrence (kernels/ops.py::rwkv6_wkv).  Its
+    prefill and decode step raise until ROADMAP Queue 1 item 6."""
+    if cfg.family != "ssm":
+        raise ValueError(f"{cfg.name}: build_rwkv_lm takes the 'ssm' family")
+    device = torch.device(device)
+    H, hd = cfg.ssm_heads, cfg.resolved_head_dim
+
+    def init(gen: Optional[torch.Generator] = None) -> Params:
+        kw = dict(device=device,
+                  generator=_generator(gen, generator, device))
+        return {
+            "embed": embed_init(cfg.padded_vocab, cfg.d_model, param_dtype,
+                                **kw),
+            "layers": stacked_init(
+                lambda: rwk.block_init(cfg.d_model, cfg.d_ff, H, hd,
+                                       param_dtype, **kw), cfg.n_layers),
+            "final_norm": {"scale": rmsnorm_init(cfg.d_model, param_dtype,
+                                                 device=device)},
+            "lm_head": dense_init(cfg.d_model, cfg.padded_vocab,
+                                  param_dtype, **kw),
+        }
+
+    def forward(params: Params, embeds, positions=None):
+        x = scan_layers(lambda x, lp: rwk.block_apply(
+            lp, x, n_heads=H, head_dim=hd, eps=cfg.norm_eps, impl=impl),
+            embeds.to(param_dtype), params["layers"])
+        return (rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps),
+                torch.zeros((), device=embeds.device))
+
+    def loss_fn(params: Params, batch):
+        h, _ = forward(params, params["embed"][batch["tokens"].long()])
+        logits = h @ params["lm_head"]
+        return softmax_cross_entropy(logits, batch["labels"],
+                                     batch.get("mask"))
+
+    return ModelBundle(cfg=cfg, device=device, init=init, init_train=init,
+                       forward=forward, loss_fn=loss_fn,
+                       prefill=_not_ported("the RWKV prefill"),
+                       decode_step=_not_ported("the RWKV decode step"))

@@ -182,6 +182,6 @@ def test_paged_prefill_and_decode_match_jax(pair):
 
 
 def test_unported_families_raise():
-    for arch in ("deepseek-v2-lite-16b", "qwen2-vl-2b", "rwkv6-1.6b"):
+    for arch in ("deepseek-v2-lite-16b", "qwen2-vl-2b", "hymba-1.5b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(get_config(arch).reduced(), device="cpu")

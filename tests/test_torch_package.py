@@ -43,7 +43,9 @@ def test_importing_every_module_leaves_jax_out():
               "core.baselines", "core.simulator", "comm.reducer",
               "comm.sparse", "comm.quant", "comm.lowrank", "comm.bucket",
               "optim.optimizers", "optim.schedules", "optim.clip",
-              "data.synthetic", "models.resnet"):
+              "data.synthetic", "models.resnet", "kernels.rwkv6_wkv",
+              "kernels.flash_attention", "models.rwkv6", "models.stubs",
+              "data.loader", "launch.train"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -79,7 +81,7 @@ def test_every_kernel_source_is_built_by_the_chip_smoke():
     csrc = os.path.join(SRC, "kernels", "csrc")
     found = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
     for name in ("flash_decode", "topk_compress", "qint8_pack",
-                 "batched_qr"):
+                 "batched_qr", "rwkv6_wkv", "flash_attention"):
         assert name in found, name
         assert os.path.exists(os.path.join(SRC, "kernels", f"{name}.py"))
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
