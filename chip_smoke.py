@@ -14,10 +14,19 @@ Phases (each prints one line of numbers; any failure exits non-zero):
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions
   2. build    nvcc builds the six csrc/*.cu sources (SOURCES) for sm_90a,
               one process each, all at once (seconds, ptxas)
-  3. kernel   flash_decode against its plain PyTorch version on the card,
-              at small fp32 shapes (three windows, several tiles and pages)
-              and at the serving shape in fp32 and in bf16, with the
-              kernel's, the plain version's and SDPA's times and the bound
+  3. kernel   flash_decode (split-K: a split kernel and its combine)
+              against its plain PyTorch version on the card, at small fp32
+              shapes (three windows, several tiles and pages, one- and
+              three-page splits), on every code path (tensor-core path at
+              D 32-256 and 1-8 warp groups, CUDA-core path for the mixed
+              dtype pairs), at split boundaries in fp32 and bf16 (lengths
+              SK-1, SK, SK+1, 2SK+1, a window inside a split, all empty, one
+              long slot and seven empty, all at 4096 keys; one-page splits
+              and the plain split decomposition too) and at the serving
+              shape in fp32 (with a control that drops the key at a split
+              boundary and must fail the limit) and in bf16, with the
+              kernel's, the plain version's and SDPA's times, the bound, the
+              grid, a split-size sweep, and the all-4096 case's time
   4. serve    starcoder2-15b at full width, bf16 random weights from seed 0,
               PagedServeEngine(slots=8, page_size=16, prefill_chunk=256),
               12 seeded requests; the kernel's launch count must equal
@@ -236,12 +245,15 @@ def decode_case(torch, *, b, hkv, g, d, page, maxp, lengths, dtype, seed,
 
 def time_ms(torch, fn, flush, reps: int) -> float:
     """Mean device time of fn over reps launches, L2 flushed before each
-    (the serving path finds each layer's pool cold)."""
+    (the serving path finds each layer's pool cold).  The card sleeps
+    ~50 us after the flush, so that the host has queued fn's launches
+    before the start event is reached and the time counts no host gap."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(100_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -298,44 +310,156 @@ def check(torch, label, out_k, out_p, dtype):
     return err, share
 
 
+def plain_dropping_key(torch, kref, q, kp, vp, tables, lens, window, slot,
+                       key):
+    """flash_decode_plain with key ``key`` of slot ``slot`` masked out as
+    well: the control of an off-by-one at a split boundary."""
+    b, hq, d = q.shape
+    hkv = kp.shape[0]
+    k = kref.gather_pages(kp, tables).float()
+    v = kref.gather_pages(vp, tables).float()
+    t = k.shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k) * (1.0 / float(d) ** 0.5)
+    ln = lens.long()[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    valid = kpos < ln
+    if window:
+        valid &= (ln - 1 - kpos) < window
+    valid[slot, key] = False
+    scores = scores.masked_fill(~valid[:, None, None], kref.NEG_INF)
+    out = torch.einsum("bkgt,btkd->bkgd", torch.softmax(scores, -1), v)
+    out = torch.where(valid.any(1)[:, None, None, None], out,
+                      torch.zeros_like(out))
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
 def phase_kernel(torch, kops, kref):
+    from repro_torch.kernels import flash_decode as fdk
     # small fp32 cases: lengths 0, 1, a page boundary, several tiles and
     # pages, a full table (128) and one past it; windows that start inside
-    # a page and span one or several 32-key tiles
+    # a page and span one or several 32-key tiles; the default plan (one
+    # split) and forced splits of one and of three pages
     lengths = [0, 1, 8, 33, 64, 100, 128, 130]
     small = decode_case(torch, b=8, hkv=2, g=3, d=32, page=8, maxp=16,
                         lengths=lengths, dtype=torch.float32, seed=1,
                         poison_null=True)
     for window in (5, 40, 0):
-        out_k = kops.flash_decode(*small, window=window, impl="kernel")
         out_p = kops.flash_decode(*small, window=window, impl="plain")
-        torch.cuda.synchronize()
-        err, _ = check(torch, f"fp32 small window {window}", out_k, out_p,
-                       torch.float32)
-        if out_k[0].abs().max().item() != 0.0:
-            fail("lengths == 0 did not give zeros")
+        errs = []
+        for sk in (None, 8, 24):
+            out_k = fdk.flash_decode(*small, window=window, split_keys=sk)
+            torch.cuda.synchronize()
+            err, _ = check(torch, f"fp32 small window {window} split_keys "
+                           f"{sk}", out_k, out_p, torch.float32)
+            if out_k[0].abs().max().item() != 0.0:
+                fail("lengths == 0 did not give zeros")
+            errs.append(f"split_keys {sk or 'default'}: {err:.3e}")
         print(f"phase 3 kernel small fp32 (B8 G3 D32 page8 maxp16 window"
-              f"{window} lengths {lengths}): max_abs_err={err:.3e} "
-              f"tol={FP32_TOL}")
+              f"{window} lengths {lengths}): max_abs_err " + ", ".join(errs)
+              + f" tol={FP32_TOL}")
+
+    # every code path of the kernel: the tensor-core path at each head dim
+    # and at 16, 32, 64 and 128 padded heads (one to eight warp groups),
+    # and the CUDA-core path for the mixed pairs (an fp32 q on a bf16
+    # pool, the serving default with fp32 params; a bf16 q on an fp32
+    # pool), at several splits and a window
+    bf, f32 = torch.bfloat16, torch.float32
+    lengths = [0, 1, 16, 100, 300, 513, 700, 1000]
+    parts = []
+    for g, d, qdt, kvdt in [(12, 128, bf, bf), (20, 128, bf, bf),
+                            (40, 64, bf, bf), (100, 32, bf, bf),
+                            (7, 256, bf, bf), (12, 128, f32, bf),
+                            (12, 128, bf, f32), (5, 256, f32, f32)]:
+        q, kp, vp, tables, lens = decode_case(
+            torch, b=8, hkv=2, g=g, d=d, page=16, maxp=64, lengths=lengths,
+            dtype=kvdt, seed=5, poison_null=True)
+        q = q.to(qdt)
+        worst = 0.0
+        for window in (0, 500):
+            out_p = kops.flash_decode(q, kp, vp, tables, lens, window=window,
+                                      impl="plain")
+            for sk in (None, 48):
+                out_k = fdk.flash_decode(q, kp, vp, tables, lens,
+                                         window=window, split_keys=sk)
+                torch.cuda.synchronize()
+                err, _ = check(torch, f"G{g} D{d} q {qdt} pool {kvdt} "
+                               f"window {window} split_keys {sk}", out_k,
+                               out_p, qdt)
+                worst = max(worst, err)
+        parts.append(f"G{g} D{d} {str(qdt)[6:]}/{str(kvdt)[6:]} {worst:.2e}")
+    print(f"phase 3 kernel paths (B8 Hkv2 page16 maxp64 windows 0 and 500, "
+          f"split_keys 256 and 48, lengths {lengths}): max_abs_err "
+          + "; ".join(parts))
 
     # the serving shape: starcoder2-15b decode, 8 slots; fp32, then the
     # bf16 pool and query of the main path
     window, page, maxp = 4096, 16, 272
+    sk, n_splits = fdk.split_plan(maxp, page, window)
     lengths = [0, 1, 16, 1000, 2047, 4096, 4150, 4200]
-    shape = dict(b=8, hkv=4, g=12, d=128, page=page, maxp=maxp,
-                 lengths=lengths)
-    case32 = decode_case(torch, **shape, dtype=torch.float32, seed=2)
+    shape = dict(b=8, hkv=4, g=12, d=128, page=page, maxp=maxp)
+    case32 = decode_case(torch, **shape, lengths=lengths,
+                         dtype=torch.float32, seed=2)
     out_k = kops.flash_decode(*case32, window=window, impl="kernel")
     out_p = kops.flash_decode(*case32, window=window, impl="plain")
     torch.cuda.synchronize()
     err32, _ = check(torch, "fp32 serving shape", out_k, out_p,
                      torch.float32)
+    # control: the key at the first split boundary of the longest slot
+    # masked out must move the output past the limit
+    lo, _ = fdk.visible_span(max(lengths), maxp, page, window)
+    slot = lengths.index(max(lengths))
+    ctrl = (plain_dropping_key(torch, kref, *case32, window, slot, lo + sk)
+            - out_p).abs().max().item()
+    if not ctrl > FP32_TOL:
+        fail(f"control: dropping key {lo + sk} of slot {slot} moves the "
+             f"output by {ctrl:.3e} <= {FP32_TOL}: the limit would not see "
+             f"an off-by-one at a split boundary")
     print(f"phase 3 kernel serving fp32 (B8 Hq48 Hkv4 D128 page16 maxp272 "
           f"window4096 lengths {lengths}): max_abs_err={err32:.3e} "
-          f"tol={FP32_TOL}")
+          f"tol={FP32_TOL} control (plain vs plain dropping key {lo + sk} "
+          f"of slot {slot}) {ctrl:.3e}")
     del case32, out_k, out_p
 
-    case = decode_case(torch, **shape, dtype=torch.bfloat16, seed=2)
+    # split boundaries at the serving widths, fp32 and bf16: lengths about
+    # one and two splits; a window (601 keys) that starts inside
+    # a page and a split; every length 0; one long slot and
+    # seven empty (load imbalance); all eight slots at 4096 visible keys
+    edge = [sk - 1, sk, sk + 1, 2 * sk + 1, 2 * sk - 1, 17, 1, 4200]
+    cases = [("edges", edge, window), ("edges window601", edge, 601),
+             ("all empty", [0] * 8, window),
+             ("one long", [4200] + [0] * 7, window),
+             ("all 4096", [4096] * 8, window)]
+    for dtype in (torch.float32, torch.bfloat16):
+        parts = []
+        for label, lens_, w in cases:
+            c = decode_case(torch, **shape, lengths=lens_, dtype=dtype,
+                            seed=3)
+            out_p = kops.flash_decode(*c, window=w, impl="plain")
+            errs = []
+            for force in (None, page):
+                out_k = fdk.flash_decode(*c, window=w, split_keys=force)
+                torch.cuda.synchronize()
+                err, _ = check(torch, f"{label} {dtype} split_keys "
+                               f"{force}", out_k, out_p, dtype)
+                errs.append(err)
+            if label == "all empty" and out_k.abs().max().item() != 0.0:
+                fail("every length 0 did not give zeros")
+            if label == "edges" and dtype == torch.float32:
+                # the plain split decomposition at one-page splits too
+                out_s = kref.flash_decode_split_plain(
+                    *c, window=w, split_keys=page)
+                err, _ = check(torch, "split plain one-page splits", out_k,
+                               out_s, dtype)
+                errs.append(err)
+            parts.append(f"{label} {'/'.join(f'{e:.2e}' for e in errs)}")
+            del c, out_p, out_k
+        print(f"phase 3 split boundaries {str(dtype)[6:]} (split_keys {sk} "
+              f"and {page}; edge lengths {edge}): max_abs_err "
+              + "; ".join(parts))
+
+    case = decode_case(torch, **shape, lengths=lengths, dtype=torch.bfloat16,
+                       seed=2)
     q, kp, vp, tables, lens = case
     out_k = kops.flash_decode(*case, window=window, impl="kernel")
     out_p = kops.flash_decode(*case, window=window, impl="plain")
@@ -364,12 +488,33 @@ def phase_kernel(torch, kops, kref):
         *case, window=window, impl="plain"), flush, 20)
     library_ms = time_ms(torch, sdpa, flush, 50)
     bound_ms, bound_by, nbytes = decode_bound(q, kp, tables, lens, window)
+    hkv, b = shape["hkv"], shape["b"]
+    busy = sum(fdk.busy_splits(lengths, maxp, page, window, sk)) * hkv
     print(f"phase 3 kernel serving bf16 (B8 Hq48 Hkv4 D128 page16 maxp272 "
           f"window4096 lengths {lengths}): max_abs_err={err:.3e} "
           f"limit_share={share:.3f} (limit {BF16_ULPS} ulps + {FP32_TOL}) "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-          f"({bound_by}, {nbytes} B) ctas={8 * 4}")
+          f"({bound_by}, {nbytes} B) splits={n_splits} split_keys={sk} "
+          f"busy_ctas={busy} launched_ctas={n_splits * hkv * b}")
+    # the split size, by measurement (SPLIT_KEYS in kernels/flash_decode.py)
+    sweep = {k: time_ms(torch, lambda: fdk.flash_decode(
+        *case, window=window, split_keys=k), flush, 50)
+        for k in (64, 128, 256, 512, 1024)}
+    print("phase 3 split_keys sweep (bf16 serving case, ms): " + " ".join(
+        f"{k}={v:.4f}" for k, v in sweep.items()))
+    del kd, vd, mask, case, out_k, out_p
+
+    full = decode_case(torch, **shape, lengths=[4096] * 8,
+                       dtype=torch.bfloat16, seed=4)
+    full_ms = time_ms(torch, lambda: fdk.flash_decode(
+        *full, window=window), flush, 50)
+    full_bound, full_by, full_bytes = decode_bound(full[0], full[1],
+                                                   full[3], full[4], window)
+    print(f"phase 3 kernel all 8 slots at 4096 visible keys bf16: "
+          f"ms={full_ms:.4f} bound_ms={full_bound:.4f} ({full_by}, "
+          f"{full_bytes} B) busy_ctas="
+          f"{sum(fdk.busy_splits([4096] * b, maxp, page, window, sk)) * hkv}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
@@ -529,6 +674,9 @@ def phase_profile(torch, np, cfg, params, engine):
           f"profiled_wall_ms_per_step={prof_wall_us / n / 1e3:.3f} "
           + " ".join(f"{k}_ms={v / n / 1e3:.3f} ({v / busy:.3f})"
                      for k, v in by.items()))
+    print("phase 4b flash_decode kernels (ms per step): " + " | ".join(
+        f"{k[:70]} {v / n / 1e3:.3f}" for v, k in sorted(kernels, reverse=True)
+        if "flash_decode" in k.lower()))
     top = sorted(kernels, reverse=True)[:6]
     print("phase 4b top device ops (ms per step): " + " | ".join(
         f"{k[:60]} {v / n / 1e3:.3f}" for v, k in top))

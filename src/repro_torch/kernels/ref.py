@@ -68,6 +68,62 @@ def flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def flash_decode_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             lengths: torch.Tensor, *, window: int = 0,
+                             scale: Optional[float] = None,
+                             split_keys: int) -> torch.Tensor:
+    """:func:`flash_decode_plain` by the CUDA kernel's decomposition.
+
+    The visible keys [lo, hi) of each sequence, lo = max(0, len - window),
+    hi = min(len, max_pages * page), are cut into splits of ``split_keys``
+    keys counted from lo.  Each split gives fp32 partials (m = its max
+    score, l = sum e^(s - m), acc = sum e^(s - m) v), m = -1e30 and l = 0
+    where it is empty; the splits are folded in order, M = max m_s, out =
+    sum e^(m_s - M) acc_s / sum e^(m_s - M) l_s, zeros where no key is
+    visible.  Same arguments as :func:`flash_decode_plain`.
+    """
+    b, hq, d = q.shape
+    hkv, _, page, _ = k_pages.shape
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    k = gather_pages(k_pages, block_tables).float()    # [B, T, Hkv, D]
+    v = gather_pages(v_pages, block_tables).float()
+    t = k.shape[1]
+    qg = q.reshape(b, hkv, g, d).float()
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k) * scale
+    lens = lengths.long()[:, None]
+    lo = (lens - window).clamp_min(0) if window else torch.zeros_like(lens)
+    hi = lens.clamp_max(t)
+    span = min(window, t) if window else t
+    kpos = torch.arange(t, device=q.device)[None, :]
+    ms, ls, accs = [], [], []
+    for s in range(max(1, -(-span // split_keys))):
+        s0 = lo + s * split_keys
+        inside = ((kpos >= s0) & (kpos < torch.minimum(s0 + split_keys, hi))
+                  )[:, None, None]                     # [B, 1, 1, T]
+        sc = torch.where(inside, scores, torch.full_like(scores, NEG_INF))
+        m = sc.amax(dim=-1)                            # [B, Hkv, G]
+        p = torch.where(inside, torch.exp(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgt,btkd->bkgd", p, v))
+    big_m = torch.stack(ms).amax(dim=0)
+    num = torch.zeros_like(accs[0])
+    den = torch.zeros_like(ls[0])
+    for m, l, acc in zip(ms, ls, accs):
+        w = torch.exp(m - big_m)
+        num = num + w[..., None] * acc
+        den = den + w * l
+    seen = den[..., None] > 0
+    out = torch.where(seen, num / torch.where(seen, den[..., None], 1.0),
+                      torch.zeros_like(num))
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
 def topk_compress_plain(x: torch.Tensor, k: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row magnitude top-k (the sparse reducer's compress step).
