@@ -83,13 +83,16 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               controls with the bonus u dropped must fail the limit; a
               rerun gives the same bits; times against the bound and the
               plain versions
-  11. attention  the attention forward and backward kernels against their
-              plain versions (o, lse, dQ, dK, dV) at B 4, S 1024, Hq 48,
-              Hkv 4, D 128 in fp32 and bf16, window 4096 at S 8192, and
-              groups of 3, 5 and 7 (one ragged S); controls (window one
-              key short, kv head h % Hkv) must fail; a rerun gives the
-              same bits; times against the bound, the plain versions and
-              SDPA
+  11. attention  the tensor-core attention forward and backward kernels
+              against their plain versions (o, lse, dQ, dK, dV) at B 4,
+              S 1024, Hq 48, Hkv 4, D 128 in fp32 and bf16, window 4096 at
+              S 8192, groups of 3, 5, 7 and 12 (ragged S in fp32 and
+              bf16), and against flash_attention_split_plain (their
+              arithmetic emulated) at D 32, 64 and 128 in fp32 (3xTF32)
+              and bf16; controls (window one key short, kv head h % Hkv)
+              must fail; a rerun gives the same bits; times against the
+              bound, the plain versions, SDPA and the backward of one SDPA
+              call
   12. rwkv    rwkv6-1.6b at full width, 4 of 24 layers, random init from
               seed 0, P = 4 as (1, 2, 2), plan local@2/global@8:topk:0.05
               per leaf, sgd(0.1), 2 x 512 tokens of a 512-token Markov
@@ -124,6 +127,10 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 peak
 BF16_FLOPS = 989e12                 # dense tensor-core peak, bf16
 FP32_FLOPS = 67e12                  # fp32 outside the tensor cores
+TF32_FLOPS = 495e12                 # dense tensor-core peak, TF32
+# fp32 attention on the tensor cores as 3xTF32: three TF32 products per
+# fp32 product (csrc/flash_attention.cu)
+TF32_TERMS = 3
 FP32_TOL = 1e-5
 # bf16, per element: BF16_ULPS ulps of max(|kernel|, |plain|) for the two
 # final roundings, plus FP32_TOL for the fp32 sums before them (an output
@@ -1765,20 +1772,47 @@ def attn_bound(b, s, hq, hkv, d, window, esize):
     """Least time of the forward and the backward: the causal (and
     window) FLOPs the inputs need, 4 D per visible (query, key) pair and
     head forward (Q K^T and P V) and 10 D backward (S again, dP, dV, dK,
-    dQ), over the peak for the type (fp32 CUDA cores or bf16 tensor
-    cores), against each input read once and each output written once."""
+    dQ), at the card's best rate for an fp32-exact product of the type --
+    bf16: the tensor cores (989 TFLOP/s); fp32: the lesser time of the
+    CUDA cores (67 TFLOP/s) and of 3 TF32 products each on the tensor
+    cores (495 / 3 TFLOP/s) -- against each input read once and each
+    output written once.  Returns per pass (ms, "bytes" or "operations",
+    flops, the basis in words)."""
     pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
     qo = b * s * hq * d * esize
     kv = b * s * hkv * d * esize
     lse = b * hq * s * 4
-    peak = FP32_FLOPS if esize == 4 else BF16_FLOPS
     out = []
     for nbytes, flops in ((2 * qo + 2 * kv + lse, 4 * d * hq * b * pairs),
                           (4 * qo + 4 * kv + lse, 10 * d * hq * b * pairs)):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+        if esize == 4:
+            t_core = flops / FP32_FLOPS
+            t_split = TF32_TERMS * flops / TF32_FLOPS
+            t_o = min(t_core, t_split)
+            basis = (f"{TF32_TERMS} TF32 products at {TF32_FLOPS / 1e12:.0f}"
+                     f" TFLOP/s" if t_split <= t_core else
+                     f"fp32 CUDA cores at {FP32_FLOPS / 1e12:.0f} TFLOP/s")
+        else:
+            t_o = flops / BF16_FLOPS
+            basis = f"bf16 tensor cores at {BF16_FLOPS / 1e12:.0f} TFLOP/s"
+        t_b = nbytes / HBM_BYTES_PER_S
         out.append((max(t_b, t_o) * 1e3,
-                    "bytes" if t_b >= t_o else "operations", flops))
+                    "bytes" if t_b >= t_o else "operations", flops,
+                    f"{nbytes} B" if t_b >= t_o else basis))
     return out
+
+
+def sdpa_backward(torch, F, q, k, v, do):
+    """One PyTorch call's backward as the yardstick: torch.autograd.grad
+    of one scaled_dot_product_attention output (causal, GQA) with respect
+    to q, k and v, given dO; the forward runs once, outside the timing."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
 
 def phase_attention(torch):
@@ -1794,6 +1828,9 @@ def phase_attention(torch):
              ("G5 D32 window 70", 1, 320, 5, 1, 32, 70, torch.float32),
              ("G3 D128 S200 ragged", 2, 200, 9, 3, 128, 0, torch.float32),
              ("G7 D64 window 100 bf16", 1, 256, 7, 1, 64, 100,
+              torch.bfloat16),
+             ("G12 D64 window 0", 2, 256, 12, 1, 64, 0, torch.float32),
+             ("G3 D64 S200 ragged bf16", 2, 200, 6, 2, 64, 0,
               torch.bfloat16)]
     names = ("o", "lse", "dq", "dk", "dv")
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -1802,6 +1839,7 @@ def phase_attention(torch):
         q, k, v, do = attn_inputs(torch, b, s, hq, hkv, d, dtype, 50 + i)
         ok_, lk = flash_attention_fwd(q, k, v, window=win)
         op, lp = kref.flash_attention_plain(q, k, v, window=win)
+        op = op.contiguous()
         gk = flash_attention_backward(q, k, v, op, lp, do, window=win)
         gp = kref.flash_attention_backward_plain(q, k, v, op, lp, do,
                                                  window=win)
@@ -1844,13 +1882,37 @@ def phase_attention(torch):
                     q, k, v, op, lp, do), flush, 5),
                 bwd_plain_ms=time_ms(torch, lambda: kref.
                                      flash_attention_backward_plain(
-                                         q, k, v, op, lp, do), flush, 2))
-            (fb, fby, ff), (bb_, bby, bf) = attn_bound(
+                                         q, k, v, op, lp, do), flush, 2),
+                bwd_library_ms=time_ms(torch, sdpa_backward(
+                    torch, F, q, k, v, do), flush, 3))
+            (fb, fby, ff, fbasis), (bb_, bby, bf, bbasis) = attn_bound(
                 b, s, hq, hkv, d, 0, q.element_size())
             t.update(bound_ms=fb, bound_by=fby, bwd_bound_ms=bb_,
-                     bwd_bound_by=bby, flops=ff, bwd_flops=bf)
+                     bwd_bound_by=bby, flops=ff, bwd_flops=bf, basis=fbasis,
+                     bwd_basis=bbasis)
             records[label] = t
         del q, k, v, do, ok_, lk, op, lp, gk, gp
+    # the kernels against their arithmetic emulated in PyTorch
+    # (flash_attention_split_plain: the same tiles, TF32 or bf16 operand
+    # splits and per-mma sums), on each path (bf16 mma, fp32 3xTF32) and
+    # each head dim, at the same limits
+    split_parts = []
+    for i, (d, dtype) in enumerate([(dd, dt) for dt in (torch.float32,
+                                                        torch.bfloat16)
+                                    for dd in (32, 64, 128)]):
+        q, k, v, do = attn_inputs(torch, 1, 200, 6, 2, d, dtype, 70 + i)
+        ok_, lk = flash_attention_fwd(q, k, v, window=70)
+        gk = flash_attention_backward(q, k, v, ok_, lk, do, window=70)
+        os_, ls_ = kref.flash_attention_split_plain(q, k, v, window=70)
+        gs = kref.flash_attention_split_backward_plain(q, k, v, ok_, lk, do,
+                                                       window=70)
+        torch.cuda.synchronize()
+        tag = f"D{d} {'fp32' if dtype == torch.float32 else 'bf16'}"
+        meas = []
+        for name, a, bb in zip(names, (ok_, lk, *gk), (os_, ls_, *gs)):
+            _, m = hold(torch, f"attention vs split {tag} {name}", a, bb)
+            meas.append(f"{name}={m:.2e}")
+        split_parts.append(f"{tag}: " + " ".join(meas))
     # a rerun gives the same bits (no atomics)
     q, k, v, do = attn_inputs(torch, 2, 192, 6, 2, 64, torch.float32, 53)
     o1, l1 = flash_attention_fwd(q, k, v, window=70)
@@ -1864,22 +1926,26 @@ def phase_attention(torch):
     print(f"phase 11 attention kernels vs plain (fp32 limit {KERN_REL_TOL} "
           f"of max|plain|, bf16 {BF16_ULPS} ulps + that; measures per "
           f"output): " + " | ".join(parts) + "; controls (fail, as they "
-          f"must): " + "; ".join(controls) + "; rerun bit-identical")
+          f"must): " + "; ".join(controls) + "; vs split_plain (B1 S200 "
+          f"Hq6 Hkv2 window 70): " + " | ".join(split_parts)
+          + "; rerun bit-identical")
     for label, t in records.items():
         print(f"phase 11 attention {label} (B4 S1024 Hq48 Hkv4 D128 causal, "
               f"L2 flushed): fwd_ms={t['ms']:.4f} plain_ms="
               f"{t['plain_ms']:.4f} sdpa_ms={t['library_ms']:.4f} "
               f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}, "
-              f"{t['flops']} flops); bwd_ms={t['bwd_ms']:.4f} plain_ms="
-              f"{t['bwd_plain_ms']:.4f} bound_ms={t['bwd_bound_ms']:.4f} "
-              f"({t['bwd_bound_by']}, {t['bwd_flops']} flops)")
+              f"{t['flops']} flops, {t['basis']}); bwd_ms={t['bwd_ms']:.4f}"
+              f" plain_ms={t['bwd_plain_ms']:.4f} sdpa_bwd_ms="
+              f"{t['bwd_library_ms']:.4f} bound_ms={t['bwd_bound_ms']:.4f} "
+              f"({t['bwd_bound_by']}, {t['bwd_flops']} flops, "
+              f"{t['bwd_basis']})")
     t = records["training fp32"]
     fwd = {"max_abs_err": worst_f, "ms": t["ms"], "plain_ms": t["plain_ms"],
            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
            "library_ms": t["library_ms"]}
     bwd = {"max_abs_err": worst_b, "ms": t["bwd_ms"],
            "plain_ms": t["bwd_plain_ms"], "bound_ms": t["bwd_bound_ms"],
-           "bound_by": t["bwd_bound_by"], "library_ms": None}
+           "bound_by": t["bwd_bound_by"], "library_ms": t["bwd_library_ms"]}
     return fwd, bwd
 
 

@@ -24,10 +24,9 @@ The builds go to src/repro_torch/kernels/build/variants/ (gitignored).
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import os
-import subprocess
+import pathlib
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,7 +43,7 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 
 SOURCE = os.path.join(ROOT, "src/repro_torch/kernels/csrc/flash_decode.cu")
-OUT = os.path.join(ROOT, "src/repro_torch/kernels/build/variants")
+OUT = pathlib.Path(ROOT, "src/repro_torch/kernels/build/variants")
 LENGTHS = [0, 1, 16, 1000, 2047, 4096, 4150, 4200]
 WINDOW = 4096
 
@@ -125,27 +124,8 @@ def variants(src: str) -> dict:
 
 
 def build(sources: dict) -> dict:
-    os.makedirs(OUT, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        cu = os.path.join(OUT, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-             os.path.join(OUT, f"lib{name}.so"), cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        lib = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode_launch.argtypes = (
-            [vp] * 8 + [ci] * 10 + [ctypes.c_float, ci, ci, ci, vp])
-        libs[name] = lib
-    return libs
+    libs = _build.build_variants(sources, OUT, "decode")
+    return {name: fdm.declare(lib) for name, lib in libs.items()}
 
 
 def caller(lib):

@@ -59,28 +59,53 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     build yet, one nvcc process per source, all started together; returns
     each library's path.  Raises with nvcc's output if a build fails."""
     paths = {name: library_path(name) for name in names}
+    jobs = {name: (CSRC / f"{name}.cu", out) for name, out in paths.items()
+            if not out.exists()}
+    BUILD_LOG.update(_compile(jobs, "csrc/{}.cu"))
+    return paths
+
+
+def build_variants(sources: Dict[str, str], out_dir: Path, stem: str
+                   ) -> Dict[str, ctypes.CDLL]:
+    """Compile edited copies of a source: each name's text is written to
+    ``out_dir/<stem>_<name>.cu`` and built, all in parallel, with the
+    kernels' flags; returns each name's loaded library.  For the study
+    scripts that time variants of a kernel (``scripts/*_variants.py``)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, text in sources.items():
+        cu = out_dir / f"{stem}_{name}.cu"
+        cu.write_text(text)
+        jobs[name] = (cu, out_dir / f"lib{stem}_{name}.so")
+    _compile(jobs, "variant {}")
+    return {name: ctypes.CDLL(str(out)) for name, (_, out) in jobs.items()}
+
+
+def _compile(jobs: Dict[str, Tuple[Path, Path]], what: str
+             ) -> Dict[str, Tuple[float, str]]:
+    """Run nvcc on each job's (source, library) at once; returns name ->
+    (seconds, nvcc log).  Each library is written under a private name
+    and renamed into place, so concurrent processes never load a
+    half-written one.  Raises with nvcc's output if a build fails."""
     started = {}
+    logs = {}
     try:
-        for name, out in paths.items():
-            if out.exists():
-                continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # compile to a private name, then rename: concurrent processes
-            # never load a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        for name, (src, out) in jobs.items():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
             os.close(fd)
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             started[name] = (tmp, time.perf_counter(), proc)
         for name, (tmp, t0, proc) in started.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):"
-                    f"\n{log}")
-            os.replace(tmp, paths[name])
-            BUILD_LOG[name] = (time.perf_counter() - t0, log)
+                    f"nvcc failed on {what.format(name)} (exit "
+                    f"{proc.returncode}):\n{log}")
+            os.replace(tmp, jobs[name][1])
+            logs[name] = (time.perf_counter() - t0, log)
     finally:
         for tmp, _, proc in started.values():
             if proc.poll() is None:
@@ -88,7 +113,7 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    return paths
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -3,10 +3,13 @@ wrappers of the hand-written Hopper kernels in ``csrc/flash_attention.cu``.
 
 The kernels replace the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention`` (forward only; the
-backward is new); the source's header says what bounds them (operations)
-and what the design does about that.  Each wrapper checks device, types,
-shapes and contiguity, allocates its outputs and scratch, launches on
-PyTorch's current stream and raises if a launch was refused.  They take
+backward is new) and run on the tensor cores, as exact as fp32
+arithmetic (``kernels/ref.py::flash_attention_split_plain`` emulates
+their arithmetic on the CPU); the source's header says what bounds them
+(operations) and what the design does about that.  Each wrapper checks
+device, types, shapes, contiguity and alignment, allocates its outputs
+and scratch, launches on PyTorch's current stream and raises if a launch
+was refused.  They take
 CUDA tensors and ``causal=True`` only: ``kernels/ops.py::flash_attention``
 routes CPU tensors to the plain versions in ``kernels/ref.py``, through
 the same autograd Functions.
@@ -32,7 +35,12 @@ HEAD_DIMS = (32, 64, 128)
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+    return declare(_build.load("flash_attention"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a build of ``csrc/flash_attention.cu`` (or
+    of an edited copy of it) on ``lib``; returns ``lib``."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.attn_forward_launch.argtypes = [
         vp, vp, vp, vp, vp,              # q, k, v, o, lse
@@ -76,6 +84,9 @@ def _check(q, k, v, rest, causal: bool, window: int, what: str
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{what} kernel takes contiguous tensors")
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"{what} kernel copies 16-byte chunks: every "
+                         f"tensor must start 16-byte aligned")
     if window < 0 or b * s * t == 0 or b > 65535 or hq > 65535:
         raise ValueError(f"bad window {window} or shape {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")

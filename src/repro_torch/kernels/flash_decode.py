@@ -72,7 +72,12 @@ def busy_splits(lengths: Sequence[int], maxp: int, page: int, window: int,
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_decode")
+    return declare(_build.load("flash_decode"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signature of a build of ``csrc/flash_decode.cu`` (or of
+    an edited copy of it) on ``lib``; returns ``lib``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_decode_launch.argtypes = [
         vp, vp, vp, vp, vp, vp,          # q, k_pages, v_pages, tables, lengths, out

@@ -317,6 +317,245 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *,
 
 
 # --------------------------------------------------------------------- #
+# the CUDA attention kernels' arithmetic, emulated
+
+ATTN_ROW_PAD = 64          # query rows of the dK/dV kernel's padded blocks
+# fp32 operands on the tensor cores: "tf32x3" (big + small TF32 parts,
+# big.big + big.small + small.big: the kernels' scheme) or "tf32" (one
+# TF32 part: a control the fp32 limit must reject)
+FP32_SCHEMES = ("tf32x3", "tf32")
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 explicit mantissa bits), ties
+    away from zero, as ``cvt.rna.tf32.f32``: add half an ulp of TF32 to
+    the bits and clear the 13 low ones.  Zeros, signed zeros and
+    subnormals keep their sign; finite inputs only."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """x -> (big, small): big = tf32(x), small = tf32(x - big); x - big
+    is exact in fp32, so big + small is x to about 2^-22 |x|."""
+    x = x.float()
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def split_bf16(x: torch.Tensor):
+    """x -> (hi, mid, lo): three bf16 values (as fp32), each the bf16
+    rounding (nearest even) of what the earlier ones leave; they give x
+    to about 2^-24 |x| (2^-27 where no exponent is lost)."""
+    rest = x.float()
+    out = []
+    for _ in range(3):
+        part = rest.to(torch.bfloat16).float()
+        out.append(part)
+        rest = rest - part
+    return out
+
+
+def _operand_terms(kind: str):
+    """(split of the A operand, split of the B operand, the chunk of k one
+    mma sums, the term pairs (i, j) of A part i times B part j, in the
+    order the kernel issues them: smallest first)."""
+    if kind == "bf16":          # A and B bf16 values: one exact product
+        return (lambda x: [x.float()]), (lambda x: [x.float()]), 16, \
+            [(0, 0)]
+    if kind == "bf16p":         # A fp32 in three bf16 parts, B bf16
+        return split_bf16, (lambda x: [x.float()]), 16, \
+            [(2, 0), (1, 0), (0, 0)]
+    if kind == "tf32x3":
+        return split_tf32, split_tf32, 8, [(1, 0), (0, 1), (0, 0)]
+    if kind == "tf32":
+        return (lambda x: [tf32_round(x)]), (lambda x: [tf32_round(x)]), \
+            8, [(0, 0)]
+    raise ValueError(f"unknown operand scheme {kind!r}")
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor, kind: str, *,
+                 init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``init + a @ b`` (a [..., M, K], b [..., K, N]) in the kernels'
+    order: K in chunks of one mma's depth; in each chunk the split
+    operands' term products summed into a zeroed fp32 fragment, smallest
+    term first, which is then added to the running sum in fp32, chunk
+    after chunk.  A K that is not a multiple of the chunk is padded with
+    zeros, as the kernels' tiles are.  Not bit for bit: the kernels chain
+    a chunk's terms in one tensor-core accumulator, whose additions
+    truncate, where this sums them in fp32 with round to nearest (the
+    kernels agree with it to within 1e-6 of max|output| on the card,
+    PERF.md)."""
+    split_a, split_b, chunk, terms = _operand_terms(kind)
+    kk = a.shape[-1]
+    pad = -kk % chunk
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    pa, pb = split_a(a), split_b(b)
+    out = init
+    for c0 in range(0, kk + pad, chunk):
+        c1 = c0 + chunk
+        part = None
+        for i, j in terms:
+            t = pa[i][..., c0:c1] @ pb[j][..., c0:c1, :]
+            part = t if part is None else part + t
+        out = part if out is None else out + part
+    return out
+
+
+def _attn_operands(dtype, fp32_scheme: str):
+    """(scheme of the products of two inputs, of an fp32 matrix -- P or
+    dS -- and an input) for inputs of ``dtype``."""
+    if dtype == torch.bfloat16:
+        return "bf16", "bf16p"
+    if fp32_scheme not in FP32_SCHEMES:
+        raise ValueError(f"fp32_scheme {fp32_scheme!r} not in "
+                         f"{FP32_SCHEMES}")
+    return fp32_scheme, fp32_scheme
+
+
+def attn_tiles(dtype, d: int) -> Tuple[int, int]:
+    """(query rows, keys) of a forward tile of ``csrc/flash_attention.cu``
+    (its ``Cfg``): fp32 8 warps of 16 rows and 32-key tiles at D 128
+    (64 below), bf16 4 warps and 32 keys."""
+    if dtype == torch.bfloat16:
+        return 64, 32
+    return 128, 32 if d == 128 else 64
+
+
+def _attn_blocks(q0: int, rows: int, kb: int, t: int, window: int):
+    """Key blocks of ``kb`` keys [lo, hi) that query rows [q0, q0 + rows)
+    can see (the kernels' ``key_blocks``)."""
+    hi = min(-(-t // kb), (q0 + rows - 1) // kb + 1)
+    first = q0 - (window - 1)
+    lo = first // kb if window > 0 and first > 0 else 0
+    return lo, hi
+
+
+def _grouped(q, k, v):
+    """q [B, S, Hq, D] -> [B, Hkv, G, S, D]; k/v -> [B, Hkv, 1, T, D]."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
+    return qg, k.permute(0, 2, 1, 3)[:, :, None], \
+        v.permute(0, 2, 1, 3)[:, :, None]
+
+
+def _visible(s: int, t: int, window: int, device):
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(t, device=device)[None, :]
+    vis = kpos <= qpos
+    if window:
+        vis &= (qpos - kpos) < window
+    return vis
+
+
+def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, window: int = 0,
+                                scale: Optional[float] = None,
+                                fp32_scheme: str = "tf32x3"
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The causal forward of ``csrc/flash_attention.cu`` in PyTorch:
+    what :func:`flash_attention_plain` computes, by the kernel's tiling,
+    operand splits and order of sums (:func:`split_matmul`).
+
+    Per block of query rows, the key blocks it can see in order (tiles
+    of :func:`attn_tiles`); S =
+    Q K^T by :func:`split_matmul` (bf16 inputs: one exact product per 16
+    dims; fp32 inputs: ``fp32_scheme`` per 8 dims), masked to -1e30, an
+    fp32 online softmax (m, l) per row, and acc = alpha acc + P V with P
+    in three bf16 parts (bf16 inputs) or by ``fp32_scheme``.  The
+    output is acc / l (l == 0 guarded) in q's type, lse = m + log l.
+    Used by the tests and chip_smoke.py, never on the main path."""
+    b, s, hq, d = q.shape
+    t = k.shape[1]
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    ab, pv = _attn_operands(q.dtype, fp32_scheme)
+    qg, kt, vt = _grouped(q, k, v)
+    scores = split_matmul(qg, kt.transpose(-1, -2), ab) * scale
+    vis = _visible(s, t, window, q.device)
+    scores = torch.where(vis, scores, torch.full_like(scores, NEG_INF))
+    bq, bk = attn_tiles(q.dtype, d)
+    outs, lses = [], []
+    for q0 in range(0, s, bq):
+        q1 = min(q0 + bq, s)
+        rows = scores[..., q0:q1, :]
+        m = torch.full(rows.shape[:-1] + (1,), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(rows.shape[:-1] + (d,), device=q.device)
+        lo, hi = _attn_blocks(q0, bq, bk, t, window)
+        for kb in range(lo, hi):
+            k0, k1 = kb * bk, min(kb * bk + bk, t)
+            sc = rows[..., k0:k1]
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            m = m_new
+            acc = split_matmul(p, vt[..., k0:k1, :], pv, init=acc * alpha)
+        empty = l == 0.0
+        outs.append(acc / torch.where(empty, 1.0, l))
+        lses.append(torch.where(empty, NEG_INF, m + torch.log(l))[..., 0])
+    out = torch.cat(outs, dim=-2).permute(0, 3, 1, 2, 4)
+    lse = torch.cat(lses, dim=-1).reshape(b, hq, s)
+    return out.reshape(b, s, hq, d).to(q.dtype), lse
+
+
+def flash_attention_split_backward_plain(q, k, v, o, lse, do, *,
+                                         window: int = 0,
+                                         scale: Optional[float] = None,
+                                         fp32_scheme: str = "tf32x3"
+                                         ) -> Tuple[torch.Tensor,
+                                                    torch.Tensor,
+                                                    torch.Tensor]:
+    """The causal backward of ``csrc/flash_attention.cu`` in PyTorch, by
+    its arithmetic: delta = rowsum(dO O) in fp32; S = Q K^T and dP =
+    dO V^T per mma chunk as in the forward; P = exp(scale S - lse) where
+    visible, else 0; dS = P (dP - delta); dQ = scale sum over the key
+    blocks of dS K (the dQ kernel), dV = sum over the group's query heads
+    and the query blocks of P^T dO and dK = scale (the same of dS^T Q)
+    (the dK/dV kernel), each product with P or dS split as the forward
+    splits P.  Query rows are padded to whole blocks, which weigh 0.
+    Returns (dq, dk, dv) in the inputs' types."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    ab, pv = _attn_operands(q.dtype, fp32_scheme)
+    qg, kt, vt = _grouped(q, k, v)
+    dog = do.reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)
+    og = o.reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)
+    delta = (dog.float() * og.float()).sum(-1, keepdim=True)
+    lse_g = lse.reshape(b, hkv, g, s)[..., None]
+    sc = split_matmul(qg, kt.transpose(-1, -2), ab)
+    dp = split_matmul(dog, vt.transpose(-1, -2), ab)
+    vis = _visible(s, t, window, q.device)
+    p = torch.where(vis, torch.exp(sc * scale - lse_g), torch.zeros_like(sc))
+    ds = p * (dp - delta)
+    dq = split_matmul(ds, kt, pv) * scale
+    # dK/dV: the contraction runs over the group's heads, then the query
+    # rows of each (padded) block, in the kernel's order
+    pad = -s % ATTN_ROW_PAD
+
+    def flat(x):       # [B, Hkv, G, S, N] -> [B, Hkv, N, G * S_padded]
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        return x.permute(0, 1, 4, 2, 3).reshape(b, hkv, x.shape[-1], -1)
+
+    def rows(x):       # [B, Hkv, G, S, D] -> [B, Hkv, G * S_padded, D]
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+        return x.reshape(b, hkv, -1, d)
+
+    dv = split_matmul(flat(p), rows(dog), pv)
+    dk = split_matmul(flat(ds), rows(qg), pv) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+# --------------------------------------------------------------------- #
 # RWKV-6 WKV recurrence, forward and backward
 
 WKV_CHUNK = 64             # steps between the forward's state checkpoints
