@@ -79,10 +79,14 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               versions (y, the final state, the checkpoints and all six
               gradients within KERN_REL_TOL) at the training shape (B 8,
               S 512, H 32, D 64, fp32, w in [0.05, 0.999], nonzero s0
-              and dS_T), at S 64, 192 and 130 (D 32) and in bf16; two
-              controls with the bonus u dropped must fail the limit; a
-              rerun gives the same bits; times against the bound and the
-              plain versions
+              and dS_T), at S 64, 192 and 130 (D 32) and in bf16, and the
+              backward against rwkv6_wkv_backward_blocked_plain (its
+              schedule in plain PyTorch) under the same limits; three
+              controls (y and dk with the bonus u dropped, dr and dw read
+              with S_{t+1} for S_t) must fail the limit; a rerun gives the
+              same bits; times against the bound and the plain versions
+              (the backward's 10 readings each), and the backward's
+              device-memory bytes beyond inputs, outputs and checkpoints
   11. attention  the tensor-core attention forward and backward kernels
               against their plain versions (o, lse, dQ, dK, dV) at B 4,
               S 1024, Hq 48, Hkv 4, D 128 in fp32 and bf16, window 4096 at
@@ -181,7 +185,9 @@ CODEC_PLANS = ("local@2:qint8/global@8:topk:0.05",
 # element: BF16_ULPS ulps of max(|kernel|, |plain|) plus KERN_REL_TOL *
 # max|plain|.  Controls that must fail it: y and dk with the bonus u's
 # term dropped, attention one key short of its window (forward and dK),
-# and query head h on kv head h % Hkv instead of h // group.
+# query head h on kv head h % Hkv instead of h // group, and dr and dw
+# read with S_{t+1} for S_t (an off-by-one in the WKV backward's ring of
+# on-chip states).
 KERN_REL_TOL = 1e-5
 # phases 12 and 13: full-width LM training through the Hier-AVG trainer
 LM_MARKOV_VOCAB = 512       # the Markov chain's token ids (a 65,536^2
@@ -1681,6 +1687,36 @@ def wkv_bound(b, s, h, d, esize):
     return out
 
 
+def wkv_bwd_extra_bytes(b, s, h, d, esize):
+    """Device-memory bytes the backward kernel moves beyond its inputs,
+    outputs and checkpoints (csrc/rwkv6_wkv.cu's header): no scratch, and
+    input re-reads at most (served from L2 when the cluster's CTAs run
+    together): v and dy read by each of the D / 16 CTAs of a cluster, k, w
+    and v again by the sub-checkpoint walk for all but each chunk's last
+    sub-chunk of 8 steps.  Returns (scratch, re-reads)."""
+    from repro_torch.kernels.ref import WKV_BWD_ROWS, WKV_BWD_SUB, WKV_CHUNK
+    cl = d // WKV_BWD_ROWS
+    seq = b * s * h * d * esize
+    # steps the sub-checkpoint walk reads: each chunk but its last sub-chunk
+    walked = sum(max(0, -(-min(WKV_CHUNK, s - t0) // WKV_BWD_SUB) - 1)
+                 * WKV_BWD_SUB for t0 in range(0, s, WKV_CHUNK)) / s
+    reads = (1 + (1 + walked) * 2 + cl * (1 + walked) + cl) * seq
+    return 0, int(reads - 5 * seq)
+
+
+def shifted_state_control(r, k, v, w, u, dr, dk, dw, dy):
+    """dr and dw as a backward that read S_{t+1} for S_t (an off-by-one in
+    the kernel's ring of on-chip states) would give them, from the right
+    gradients in closed form (S_{t+1} = w S_t + k v^T): dr' = w (dr - u k
+    dyv) + k dyv + u k dyv, dw' = w dw + k (dk - u r dyv); u broadcast to
+    [B, S, H, D].  tests/test_torch_wkv_blocked.py holds the form against
+    a direct loop."""
+    dyv = (dy * v).sum(-1, keepdim=True)
+    ukd = u * k * dyv
+    return (w * (dr - ukd) + k * dyv + ukd,
+            w * dw + k * (dk - u * r * dyv))
+
+
 def phase_wkv(torch):
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.rwkv6_wkv import (rwkv6_wkv_backward,
@@ -1691,7 +1727,7 @@ def phase_wkv(torch):
              ("S192 fp32", 8, 192, 32, 64, torch.float32),
              ("S192 bf16", 8, 192, 32, 64, torch.bfloat16),
              ("S130 D32 fp32", 2, 130, 4, 32, torch.float32)]
-    worst, parts = {}, []
+    worst, parts, blocked = {}, [], []
     for i, (label, b, s, h, d, dtype) in enumerate(cases):
         inp = wkv_inputs(torch, b, s, h, d, dtype, seed=40 + i)
         r, k, v, w, u, s0, dy, dsT = inp
@@ -1699,6 +1735,10 @@ def phase_wkv(torch):
         gk = rwkv6_wkv_backward(r, k, v, w, u, ck, dy, dsT)
         yp, sTp, cp = kref.rwkv6_wkv_forward_plain(r, k, v, w, u, s0)
         gp = kref.rwkv6_wkv_backward_plain(r, k, v, w, u, cp, dy, dsT)
+        # the kernel's schedule (row blocks, sub-checkpoints, dv over
+        # the blocks in order), emulated in plain PyTorch
+        ge = kref.rwkv6_wkv_backward_blocked_plain(r, k, v, w, u, cp, dy,
+                                                   dsT)
         torch.cuda.synchronize()
         hold(torch, f"wkv {label} checkpoints", ck, cp)
         meas = {}
@@ -1708,16 +1748,26 @@ def phase_wkv(torch):
                               (a.float() - bb.float()).abs().max().item())
         parts.append(f"{label}: " + " ".join(
             f"{n}={m:.2e}" for n, m in meas.items()))
+        meas = [hold(torch, f"wkv {label} {name} against the emulation",
+                     a, e)[1] for name, a, e in zip(names[2:], gk, ge)]
+        blocked.append(f"{label}: " + " ".join(
+            f"{n}={m:.2e}" for n, m in zip(names[2:], meas)))
         if i == 0:
             train = (inp, ck, yp, gp)
-        del inp, yk, sTk, ck, gk, yp, sTp, cp, gp
+        del inp, yk, sTk, ck, gk, yp, sTp, cp, gp, ge
     (r, k, v, w, u, s0, dy, dsT), ck, yp, gp = train
     # controls at the training shape: the bonus u dropped from y, and
-    # from dk (a backward that forgets u's term)
+    # from dk (a backward that forgets u's term); dr and dw read with
+    # S_{t+1} for S_t
     ctl_y = control(torch, "y without u", yp - v * (r * u[:, None] * k)
                     .sum(-1, keepdim=True), yp)
     ctl_dk = control(torch, "dk without u", gp[1] - u[:, None] * r
                      * (dy * v).sum(-1, keepdim=True), gp[1])
+    bad_dr, bad_dw = shifted_state_control(r, k, v, w, u[:, None], gp[0],
+                                           gp[1], gp[3], dy)
+    ctl_dr = control(torch, "dr with S_{t+1}", bad_dr, gp[0])
+    ctl_dw = control(torch, "dw with S_{t+1}", bad_dw, gp[3])
+    del bad_dr, bad_dw
     # a rerun gives the same bits (no atomics)
     yk, sTk, ck1 = rwkv6_wkv_forward(r, k, v, w, u, s0)
     gk = rwkv6_wkv_backward(r, k, v, w, u, ck1, dy, dsT)
@@ -1730,22 +1780,30 @@ def phase_wkv(torch):
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     f_ms = time_ms(torch, lambda: rwkv6_wkv_forward(r, k, v, w, u, s0),
                    flush, 20)
-    b_ms = time_ms(torch, lambda: rwkv6_wkv_backward(
-        r, k, v, w, u, ck1, dy, dsT), flush, 10)
+    b_reps = [time_ms(torch, lambda: rwkv6_wkv_backward(
+        r, k, v, w, u, ck1, dy, dsT), flush, 1) for _ in range(10)]
+    b_ms = statistics.fmean(b_reps)
     f_plain = time_ms(torch, lambda: kref.rwkv6_wkv_forward_plain(
         r, k, v, w, u, s0), flush, 2)
     b_plain = time_ms(torch, lambda: kref.rwkv6_wkv_backward_plain(
         r, k, v, w, u, ck1, dy, dsT), flush, 1)
     (fb, fby, fbytes), (bb_, bby, bbytes) = wkv_bound(8, 512, 32, 64, 4)
+    scratch, rereads = wkv_bwd_extra_bytes(8, 512, 32, 64, 4)
     print(f"phase 10 wkv kernels vs plain (fp32 limit {KERN_REL_TOL} of "
           f"max|plain|, bf16 {BF16_ULPS} ulps + that; measures per "
-          f"output): " + " | ".join(parts) + f"; controls: y without u "
-          f"{ctl_y:.3e}, dk without u {ctl_dk:.3e} (fail, as they must); "
-          f"rerun bit-identical; training shape (B8 S512 H32 D64 fp32, L2 "
+          f"output): " + " | ".join(parts) + "; backward vs "
+          f"rwkv6_wkv_backward_blocked_plain (same limits): "
+          + " | ".join(blocked) + f"; controls: y without u {ctl_y:.3e}, "
+          f"dk without u {ctl_dk:.3e}, dr with S_(t+1) {ctl_dr:.3e}, dw "
+          f"with S_(t+1) {ctl_dw:.3e} (fail, as they must); rerun "
+          f"bit-identical; training shape (B8 S512 H32 D64 fp32, L2 "
           f"flushed): fwd_ms={f_ms:.4f} plain_ms={f_plain:.4f} "
           f"bound_ms={fb:.4f} ({fby}, {fbytes} B); bwd_ms={b_ms:.4f} "
-          f"plain_ms={b_plain:.4f} bound_ms={bb_:.4f} ({bby}, {bbytes} B); "
-          f"library: none (no single PyTorch call)")
+          f"(reps: {fmt(b_reps)}) plain_ms={b_plain:.4f} "
+          f"bound_ms={bb_:.4f} ({bby}, {bbytes} B); backward beyond "
+          f"inputs, outputs and checkpoints: scratch {scratch} B, input "
+          f"re-reads <= {rereads} B; library: none (no single PyTorch "
+          f"call)")
     fwd = {"max_abs_err": max(worst["y"], worst["sT"]), "ms": f_ms,
            "plain_ms": f_plain, "bound_ms": fb, "bound_by": fby,
            "library_ms": None}

@@ -648,3 +648,78 @@ def rwkv6_wkv_backward_plain(r, k, v, w, u, ckpt, dy, dsT):
             g = w_t[..., None] * g + r_t[..., None] * dy_t[..., None, :]
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
             du, g)
+
+
+WKV_BWD_ROWS = 16          # state rows per CTA of the backward kernel
+WKV_BWD_SUB = 8            # steps between its on-chip sub-checkpoints
+
+
+def rwkv6_wkv_backward_blocked_plain(r, k, v, w, u, ckpt, dy, dsT, *,
+                                     rows: int = WKV_BWD_ROWS,
+                                     sub: int = WKV_BWD_SUB):
+    """:func:`rwkv6_wkv_backward_plain` in the CUDA backward's own
+    schedule (``csrc/rwkv6_wkv.cu``), for the tests and the on-card
+    checks: the state's D rows in blocks of ``rows`` (one CTA each of a
+    cluster of D / rows), each chunk walked forward from its checkpoint
+    to a sub-checkpoint every ``sub`` steps, each sub-chunk's states
+    recomputed from its sub-checkpoint and consumed in reverse; dy.v once
+    per step; each block's dv partial (its rows' sum of G k, plus dy times
+    its rows' r.u k) summed over the blocks in order 0, 1, ...  Same
+    arguments and returns as the plain backward."""
+    b, s, h, d = r.shape
+    if d % rows:
+        raise ValueError(f"head size {d} is not a multiple of rows={rows}")
+    nb = d // rows
+    rf, kf, vf, wf, dyf = (x.float() for x in (r, k, v, w, dy))
+    blk = lambda x: x.reshape(*x.shape[:-1], nb, rows)  # noqa: E731
+    uf = blk(_per_batch_u(u, b))                        # [B,H,nb,rows]
+    rb, kb, wb = blk(rf), blk(kf), blk(wf)              # [B,S,H,nb,rows]
+    dyv = (dyf * vf).sum(-1)                            # [B,S,H]
+    ruk = (rb * uf[:, None] * kb).sum(-1)               # [B,S,H,nb]
+    grads = [torch.empty((b, s, h, nb, rows), device=r.device)
+             for _ in range(3)]
+    dr, dk, dw = grads
+    dv_parts = torch.empty((nb, b, s, h, d), device=r.device)
+    du = torch.zeros((b, h, nb, rows), device=r.device)
+    g = dsT.float().reshape(b, h, nb, rows, d)          # G, by block
+
+    def step(st, t):                                    # S_t -> S_{t+1}
+        return wb[:, t, ..., None] * st + \
+            kb[:, t, ..., None] * vf[:, t, :, None, None, :]
+
+    for c in reversed(range(ckpt.shape[2])):
+        t0, t1 = c * WKV_CHUNK, min(s, (c + 1) * WKV_CHUNK)
+        st = ckpt[:, :, c].float().reshape(b, h, nb, rows, d)
+        subs = []
+        for ta in range(t0, t1, sub):
+            subs.append(st)
+            for t in range(ta, min(ta + sub, t1)):
+                st = step(st, t)
+        for ta, st in reversed(list(zip(range(t0, t1, sub), subs))):
+            states = []
+            for t in range(ta, min(ta + sub, t1)):
+                states.append(st)
+                st = step(st, t)
+            for t in reversed(range(ta, min(ta + sub, t1))):
+                st = states[t - ta]
+                r_t, k_t, w_t = rb[:, t], kb[:, t], wb[:, t]
+                v_t, dy_t, dyv_t = vf[:, t], dyf[:, t], dyv[:, t]
+                dvv = dyv_t[..., None, None]
+                dr[:, t] = torch.einsum("bhnji,bhi->bhnj", st, dy_t) \
+                    + uf * k_t * dvv
+                du += r_t * k_t * dvv
+                dk[:, t] = uf * r_t * dvv \
+                    + torch.einsum("bhnji,bhi->bhnj", g, v_t)
+                dw[:, t] = (g * st).sum(-1)
+                dv_parts[:, :, t] = (
+                    dy_t[:, :, None] * ruk[:, t, ..., None]
+                    + torch.einsum("bhnji,bhnj->bhni", g, k_t)
+                ).permute(2, 0, 1, 3)
+                g = w_t[..., None] * g + r_t[..., None] * dy_t[:, :, None,
+                                                                None, :]
+    dv = dv_parts[0]
+    for part in dv_parts[1:]:
+        dv = dv + part
+    flat = lambda x, like: x.reshape(b, s, h, d).to(like.dtype)  # noqa: E731
+    return (flat(dr, r), flat(dk, k), dv.to(v.dtype), flat(dw, w),
+            du.reshape(b, h, d), g.reshape(b, h, d, d))

@@ -3,13 +3,18 @@ hand-written Hopper kernels in ``csrc/rwkv6_wkv.cu``.
 
 The kernels replace the Pallas TPU kernel
 ``repro/kernels/rwkv6_wkv.py::rwkv6_wkv`` (forward only; the backward is
-new); the source's header says what bounds them (the sequential chain of
-steps) and what the design does about that.  Each wrapper checks device,
-types, shapes and contiguity, allocates its outputs and scratch, launches
-on PyTorch's current stream and raises if the launch was refused.  They
-take CUDA tensors only: ``kernels/ops.py::rwkv6_wkv`` routes CPU tensors
-to the plain versions in ``kernels/ref.py``, through the same autograd
-Functions.
+new); the source's header says what bounds them (the forward's chain of
+steps, the backward's fp32 operations) and what the designs do about that:
+the backward splits a (b, h)'s state rows over a thread-block cluster and
+recomputes its states on chip from the forward's checkpoints, with no
+scratch in device memory (``kernels/ref.py::
+rwkv6_wkv_backward_blocked_plain`` runs its schedule in plain PyTorch).
+Each wrapper checks device, types, shapes and contiguity (the backward
+also 16-byte alignment, for its vector loads), allocates its outputs,
+launches on PyTorch's current stream and raises if the launch was
+refused.  They take CUDA tensors only: ``kernels/ops.py::rwkv6_wkv``
+routes CPU tensors to the plain versions in ``kernels/ref.py``, through
+the same autograd Functions.
 
 ``rwkv6_wkv_forward.launches`` and ``rwkv6_wkv_backward.launches`` count
 accepted launches (and nothing else), so a run can show that its layers
@@ -30,9 +35,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("rwkv6_wkv")
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entry points' argument types on a build of the source."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wkv6_forward_launch.argtypes = [
         vp, vp, vp, vp, vp, vp,          # r, k, v, w, u, s0
@@ -42,11 +46,16 @@ def _lib() -> ctypes.CDLL:
     lib.wkv6_forward_launch.restype = ci
     lib.wkv6_backward_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp,  # r, k, v, w, u, ckpt, dy, dsT
-        vp, vp, vp, vp, vp, vp, vp,      # dr, dk, dv, dw, du, ds0, scratch
+        vp, vp, vp, vp, vp, vp,          # dr, dk, dv, dw, du, ds0
         ci, ci, ci, ci, ci,              # dtype, B, S, H, D
         ci, vp]                          # device index, stream
     lib.wkv6_backward_launch.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return declare(_build.load("rwkv6_wkv"))
 
 
 def _check(seq, u, states, what: str) -> Tuple[int, int, int, int]:
@@ -107,26 +116,27 @@ def rwkv6_wkv_forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def rwkv6_wkv_backward(r, k, v, w, u, ckpt, dy, dsT):
     """The gradients of (y, sT) given the forward's inputs, its
-    checkpoints and dy, dsT.  Returns (dr, dk, dv, dw in r's type, du fp32
-    [B, H, D] per batch row, ds0 fp32 [B, H, D, D])."""
+    checkpoints and dy, dsT, in one launch of a cluster of D / 16 CTAs
+    per (b, h) that needs no scratch.  Returns (dr, dk, dv, dw in r's
+    type, du fp32 [B, H, D] per batch row, ds0 fp32 [B, H, D, D])."""
     b, s, h, d = _check((r, k, v, w, dy), u, (ckpt, dsT),
                         "rwkv6_wkv_backward")
     nc = -(-s // WKV_CHUNK)
     if ckpt.shape != (b, h, nc, d, d) or dsT.shape != (b, h, d, d):
         raise ValueError(f"bad ckpt {tuple(ckpt.shape)} or dsT "
                          f"{tuple(dsT.shape)}")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w, dy, ckpt, dsT)):
+        raise ValueError("rwkv6_wkv_backward kernel takes tensors aligned "
+                         "to 16 bytes")
     grads = [torch.empty_like(r) for _ in range(4)]
     du = torch.empty((b, h, d), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
-    # the recomputed states of one chunk, per (b, h)
-    scratch = torch.empty((b * h, WKV_CHUNK, d, d), dtype=torch.float32,
-                          device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = _lib().wkv6_backward_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), ckpt.data_ptr(), dy.data_ptr(), dsT.data_ptr(),
         *(g.data_ptr() for g in grads), du.data_ptr(), ds0.data_ptr(),
-        scratch.data_ptr(), _DTYPE_CODE[r.dtype], b, s, h, d,
+        _DTYPE_CODE[r.dtype], b, s, h, d,
         r.device.index, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_wkv_backward launch failed: cudaError "
