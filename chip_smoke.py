@@ -37,19 +37,32 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               with the plain version at 10, 20 and 40 layers; at 40 they
               agree within LOGIT_REL_TOL * max|logit|, and two controls with
               a wrong window must not
-  6. topk     topk_compress against its plain version, bit for bit in
-              values and indices: 16 fp32 rows at every leaf size of
-              ResNet-18 (k at ratio 0.05), k = 1, k = n, bf16 ties, an
-              all-zero row, +-1 with a 1e8 outlier, signed zeros,
-              subnormals, and 2 rows of 2^24 + 3; then the time of one
-              global fire (55 leaves, L2 flushed before each launch) for
-              the kernel, the plain version and torch.topk, with the bound
+  6. topk     topk_compress, alone and grouped (topk_compress_many),
+              against topk_compress_plain and topk_compress_radix_plain
+              (the kernel's decomposition in plain PyTorch), bit for bit
+              in values and indices: 16 fp32 rows at every leaf size of
+              ResNet-18 (k at ratio 0.05), k = 1, k = n, bf16 ties, all-zero
+              rows, +-1 with a 1e8 outlier, signed zeros, subnormals, ties
+              whose taken part ends in the first, a middle and the last
+              chunk, n = 1..3 mod 4 (fp32) and 1..7 mod 8 (bf16) at
+              SMALL_N and past it, 2 rows of 2^24 + 3, candidate caps 0
+              and 1, and one grouped call per dtype mixing small and large
+              segments at rows 1, 2, 4 and 16; a build without eq_before in
+              the look-back must differ; then one ResNet-18 fire (55
+              leaves) as one grouped call and per leaf, against the parent
+              design's way (55 calls), the plain version, torch.topk and
+              the bound, its launches read from a profiler trace; and one
+              rwkv6-1.6b fire at phase 12's size (25 leaves x 4 rows,
+              7.85 GB) in the reducer's 1 GiB groups, each leaf held to
+              plain, against torch.topk and the bound
   7. train    Simulator: ResNet-18 at width 64 (11,172,160 params per
               learner, fp32), P = 16 learners as (1, 4, 4), plan
               local@2/global@8:topk:0.05 per leaf, sgd(0.1), 32 examples
               per learner per step of the seeded Gaussian-mixture task as
               32x32x3 images, 3 rounds: per-round losses, walls, peak
-              memory, and 165 top-k launches (55 leaves x 3 fires); then
+              memory, and 165 top-k launches (55 leaves x 3 fires, one
+              grouped call a fire, at most TOPK_LAUNCHES_PER_FIRE kernels
+              a fire in the profiled round's trace); then
               2 rounds from one converted state with the kernel and with
               the plain top-k, which must agree bit for bit; then one
               profiled round by kernel class, idle share against an
@@ -119,6 +132,7 @@ import gzip
 import json
 import math
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -148,6 +162,12 @@ SOURCES = ("flash_decode", "topk_compress", "qint8_pack", "batched_qr",
            "rwkv6_wkv", "flash_attention")
 TOPK_RATIO = 0.05
 TOPK_ROWS = 16                      # P = 16 learners: one row each
+# phase 6 times a whole fire after a device sleep of this many cycles
+# (~5 ms), so that the host has queued all its launches first
+TOPK_SLEEP_CYCLES = 10_000_000
+# top-k kernel launches a global fire may take in phase 7's trace (one
+# grouped call: topk_small, topk_digit x 3, topk_compact)
+TOPK_LAUNCHES_PER_FIRE = 8
 TRAIN_PLAN = "local@2/global@8:topk:0.05"
 TRAIN_ROUNDS = 3
 QINT8_BLOCK = 256
@@ -765,6 +785,30 @@ def resnet18_leaf_sizes(torch):
         resnet_init(None, CNNConfig(width=64), device="meta"))]
 
 
+def lm_leaf_sizes(cfg):
+    """Per-learner sizes of an LM's leaves (meta tensors)."""
+    from repro_torch.models import build
+    from repro_torch.tree import leaves
+    return [p.numel() for p in leaves(build(cfg, device="meta").init_train())]
+
+
+def rwkv_leaf_sizes():
+    """Per-learner sizes of rwkv6-1.6b's 25 leaves at RWKV_LAYERS layers,
+    the phase 12 model."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return lm_leaf_sizes(dataclasses.replace(get_config("rwkv6-1.6b"),
+                                             n_layers=RWKV_LAYERS))
+
+
+def topk_groups(sizes, rows):
+    """The top-k reducer's grouping of consecutive leaves of these sizes
+    (``rows`` fp32 rows each) into one kernel call per group."""
+    from repro_torch.comm.sparse import TopKReducer, delta_groups
+    return delta_groups([4 * rows * n for n in sizes],
+                        TopKReducer.group_bytes)
+
+
 def same_bits(torch, a, b) -> bool:
     """Equal bit for bit (so -0.0 differs from +0.0)."""
     if a.dtype != b.dtype or a.shape != b.shape:
@@ -773,24 +817,104 @@ def same_bits(torch, a, b) -> bool:
     return torch.equal(a.view(view), b.view(view))
 
 
+def fire_ms(torch, fn, flush, reps, sleep=TOPK_SLEEP_CYCLES, strict=True):
+    """Device time of fn (a whole fire, one or many calls) over reps runs,
+    the L2 flushed once before each; the card sleeps ``sleep`` cycles
+    first (~sleep / 2e6 ms), so that the host has queued every launch of
+    fn before the start event is reached.  Returns (readings in ms, the
+    longest host enqueue in ms).  If the host took longer than the sleep,
+    the reading counts its gap: ``strict`` fails then (for the kernel's
+    own times), else the caller prints the host time beside it."""
+    fn()
+    torch.cuda.synchronize()
+    out, host = [], 0.0
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(sleep)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host = max(host, (time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    if strict and host > sleep / 2e6:
+        fail(f"fire_ms: the host queued for {host:.3f} ms, longer than the "
+             f"card slept ({sleep} cycles)")
+    return out, host
+
+
+def topk_hold(torch, label, x, k, cap=None):
+    """The kernel on one segment, alone and as the only segment of a
+    grouped call, against topk_compress_plain and
+    topk_compress_radix_plain, bit for bit in values and indices.  Returns
+    the kernel's output and its largest |value - plain value|."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.topk_compress import (topk_compress,
+                                                   topk_compress_many)
+    outs = [topk_compress_many([x], [k], candidate_cap=cap)[0]]
+    if cap is None:
+        outs.append(topk_compress(x, k))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, (vp, ip) in (("plain", kref.topk_compress_plain(x, k)),
+                           ("radix plain", kref.topk_compress_radix_plain(
+                               x, k, cap=cap))):
+        for v, i in outs:
+            if not torch.equal(i, ip):
+                bad = (i != ip).nonzero()[:4].tolist()
+                fail(f"topk {label} (rows {x.shape[0]} n {x.shape[1]} k "
+                     f"{k}): indices differ from the {name} version at "
+                     f"{bad}")
+            if not same_bits(torch, v, vp):
+                fail(f"topk {label}: values differ from the {name} version "
+                     f"in their bits")
+            worst = max(worst, (v.float() - vp.float()).abs().max().item())
+    return outs[0], worst
+
+
+def tie_rows(torch, gen, rows, n, stride, end_chunk):
+    """Rows whose k-th magnitude is a tie (1.0 at every ``stride``-th
+    index, N(0, 0.1) elsewhere, 64 values of 2.0) and whose taken ties end
+    in chunk ``end_chunk`` of TOPK_CHUNK elements: (x, k)."""
+    from repro_torch.kernels import ref as kref
+    x = torch.randn((rows, n), generator=gen, device="cuda") * 0.1
+    x[:, ::stride] = 1.0
+    big = torch.randperm(n, generator=gen, device="cuda")[:64]
+    x[:, big] = -2.0
+    ties = (x[0].abs() == 1.0).cumsum(0)
+    cut = min(n, end_chunk * kref.TOPK_CHUNK + kref.TOPK_CHUNK // 2)
+    return x, int((x[0].abs() == 2.0).sum()) + int(ties[cut - 1])
+
+
 def phase_topk(torch):
     from repro_torch.comm.sparse import TopKReducer
-    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import topk_compress as tkm
     k_for = TopKReducer(TOPK_RATIO).k_for
     gen = torch.Generator(device="cuda").manual_seed(6)
 
     def randn(rows, n):
         return torch.randn((rows, n), generator=gen, device="cuda")
 
+    t0 = time.perf_counter()
     sizes = resnet18_leaf_sizes(torch)
+    small_n, chunk = kref.TOPK_SMALL_N, kref.TOPK_CHUNK
     cases = [(f"fp32 n{n}", randn(TOPK_ROWS, n), k_for(n))
              for n in sorted(set(sizes))]
     cases += [("k=1", randn(TOPK_ROWS, 5120), 1),
               ("k=n", randn(TOPK_ROWS, 5120), 5120),
+              ("large k=1", randn(4, 3 * chunk + 1), 1),
+              ("large k=n", randn(4, 3 * chunk + 1), 3 * chunk + 1),
               ("bf16 ties", (randn(TOPK_ROWS, 36864) * 2).round()
                .to(torch.bfloat16), k_for(36864)),
               ("all zero", torch.zeros((TOPK_ROWS, 8192), device="cuda"),
-               k_for(8192))]
+               k_for(8192)),
+              ("large all zero", torch.zeros((4, 3 * chunk + 5),
+                                             device="cuda"), 1000)]
     ones = torch.sign(randn(TOPK_ROWS, 73728))
     ones[:, 40000] = 1e8
     cases.append(("+-1 and 1e8", ones, k_for(73728)))
@@ -799,65 +923,207 @@ def phase_topk(torch):
     signed[:, ::9] = -torch.rand((TOPK_ROWS, len(range(0, 5120, 9))),
                                  generator=gen, device="cuda") - 0.5
     cases.append(("negatives and -0.0", signed, 700))
+    big_signed = torch.where(torch.rand((4, 2 * chunk + 3), generator=gen,
+                                        device="cuda") < 0.5, -0.0, 0.0)
+    big_signed[:, ::5] = -1.5
+    cases.append(("large negatives and -0.0", big_signed, chunk))
     cases.append(("subnormals", randn(TOPK_ROWS, 5120) * 1e-40, 256))
+    cases.append(("large subnormals", randn(4, 100_003) * 1e-40, 5000))
+    for end in (0, 2, 5):                 # where the taken ties end
+        x, k = tie_rows(torch, gen, 4, 6 * chunk - 7, 3, end)
+        cases.append((f"ties ending in chunk {end} of 6", x, k))
+    for n in (small_n - 3, small_n - 2, small_n - 1, small_n, small_n + 1,
+              small_n + 2, small_n + 3, 5 * chunk + 1, 5 * chunk + 2,
+              5 * chunk + 3):
+        cases.append((f"fp32 n{n}", randn(4, n), k_for(n)))
+    for r in range(1, 8):                 # n = r (mod 8) in bf16
+        for n in (small_n - 8 + r, 4 * chunk + r):
+            cases.append((f"bf16 n{n}", (randn(4, n) * 4).round()
+                          .to(torch.bfloat16), k_for(n)))
+    cases.append(("bf16 grid, large", (randn(16, 150_001) * 8).round()
+                  .to(torch.bfloat16), k_for(150_001)))
     big_n = 2 ** 24 + 3
     big = randn(2, big_n)
     big[:, 2 ** 24 + 1] = 1e3              # past 2^24: an fp32 index rounds
+    n_big = len(cases)
     cases.append(("rows 2 n 2^24+3", big, k_for(big_n)))
-    t0 = time.perf_counter()
-    worst = 0.0
+    cases += [(f"rows {r} n {n}", randn(r, n), k_for(n)) for r, n in (
+        (1, 64), (4, 100_000), (1, 300_001), (4, 17), (16, 65_536), (1, 9))]
+    held, worst = [], 0.0
     for label, x, k in cases:
-        v, i = kops.topk_compress(x, k, impl="kernel")
-        vp, ip = kops.topk_compress(x, k, impl="plain")
-        torch.cuda.synchronize()
-        if not torch.equal(i, ip):
-            bad = (i != ip).nonzero()[:4].tolist()
-            fail(f"topk {label} (rows {x.shape[0]} n {x.shape[1]} k {k}): "
-                 f"indices differ from the plain version at {bad}")
-        if not same_bits(torch, v, vp):
-            fail(f"topk {label}: values differ from the plain version "
-                 f"in their bits")
-        worst = max(worst, (v.float() - vp.float()).abs().max().item())
-    if int(cases[-1][1].shape[1]) != big_n or \
-            2 ** 24 + 1 not in i[0].tolist():
+        out, err = topk_hold(torch, label, x, k)
+        held.append(out)
+        worst = max(worst, err)
+    if 2 ** 24 + 1 not in held[n_big][1][0].tolist():
         fail("topk: the row past 2^24 did not select its outlier there")
+    # the path without candidates (cap 0) and with at most one (cap 1),
+    # on the large segments of up to 4 rows
+    capped = [j for j, (_, x, _) in enumerate(cases)
+              if x.shape[1] > small_n and x.shape[0] <= 4 and j != n_big]
+    for cap in (0, 1):
+        for j in capped:
+            topk_hold(torch, f"{cases[j][0]} cap {cap}", *cases[j][1:],
+                      cap=cap)
+    # one grouped call per dtype over every case but the 2^24 one: small
+    # and large segments at rows 1, 2, 4 and 16 together, each equal to
+    # its own call bit for bit
+    by_dtype = {}
+    for j, (label, x, k) in enumerate(cases):
+        if j != n_big:
+            by_dtype.setdefault(x.dtype, []).append(j)
+    for dtype, js in by_dtype.items():
+        outs = tkm.topk_compress_many([cases[j][1] for j in js],
+                                      [cases[j][2] for j in js])
+        for j, (v, i) in zip(js, outs):
+            if not (torch.equal(i, held[j][1]) and
+                    same_bits(torch, v, held[j][0])):
+                fail(f"topk {cases[j][0]}: the grouped call ({len(js)} "
+                     f"{dtype} segments) differs from its own call")
+    n_cases = len(cases)
+    # a control that must fail: the look-back without eq_before, so every
+    # chunk takes its ties as if none came before it
+    src = (_build.CSRC / "topk_compress.cu").read_text()
+    marker = "const int eq_before = s_before[1];"
+    if src.count(marker) != 1:
+        fail("topk control: marker not found once in csrc/topk_compress.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = _build.build_variants(
+            {"no_eq_before": src.replace(marker, "const int eq_before = 0;")},
+            pathlib.Path(tmp), "topk")["no_eq_before"]
+        kernel = tkm._lib
+        tkm._lib = lambda: tkm.declare(lib)
+        try:
+            x, k = tie_rows(torch, gen, 4, 6 * chunk - 7, 3, 2)
+            (v, i), = tkm.topk_compress_many([x], [k])
+            vp, ip = kref.topk_compress_plain(x, k)
+            torch.cuda.synchronize()
+            if torch.equal(i, ip):
+                fail("topk control without eq_before agrees with plain")
+            control = int((i != ip).sum())
+        finally:
+            tkm._lib = kernel
     check_s = time.perf_counter() - t0
-    del cases, big, ones, signed, v, i, vp, ip
+    del cases, held, big, ones, signed, big_signed, outs, x, v, i, vp, ip
 
-    # one global fire: the 55 leaves of ResNet-18, 16 learner rows each
-    fire = [(randn(TOPK_ROWS, n), k_for(n)) for n in sizes]
+    # one global fire of ResNet-18 (55 leaves, 16 learner rows each): per
+    # leaf as before (55 calls, the L2 flushed before each) and as the
+    # reducer runs it now, one grouped call
+    fire = [randn(TOPK_ROWS, n) for n in sizes]
+    ks = [k_for(n) for n in sizes]
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
 
-    def fire_ms(fn, reps):
-        fn(*fire[0])
+    def per_leaf_ms(fn, reps):
+        fn(fire[0], ks[0])
         torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(reps):
-            for x, k in fire:
-                total += time_ms(torch, lambda: fn(x, k), flush, 1)
-        return total / reps
+        return sum(time_ms(torch, lambda: fn(x, k), flush, 1)
+                   for _ in range(reps) for x, k in zip(fire, ks)) / reps
 
-    ms = fire_ms(lambda x, k: kops.topk_compress(x, k, impl="kernel"), 5)
-    plain_ms = fire_ms(lambda x, k: kops.topk_compress(x, k, impl="plain"),
-                       2)
-    library_ms = fire_ms(lambda x, k: torch.topk(x.abs(), k, sorted=False),
-                         5)
+    leaf_ms = per_leaf_ms(tkm.topk_compress, 5)
+    readings, host_ms = fire_ms(
+        torch, lambda: tkm.topk_compress_many(fire, ks), flush, 10)
+    ms = statistics.median(readings)
+    plain_ms = per_leaf_ms(kref.topk_compress_plain, 2)
+    library, lib_host = fire_ms(
+        torch, lambda: [torch.topk(x.abs(), k, sorted=False)
+                        for x, k in zip(fire, ks)], flush, 5, strict=False)
+    library_ms = statistics.median(library)
     nbytes = sum(x.numel() * x.element_size() + k * x.shape[0] * (
-        x.element_size() + 4) for x, k in fire)
+        x.element_size() + 4) for x, k in zip(fire, ks))
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"phase 6 topk: the {len(set(sizes))} leaf sizes of ResNet-18 "
-          f"checked bit for bit at rows {TOPK_ROWS}, plus k=1, k=n, "
-          f"bf16 ties, all zero, +-1 and 1e8, negatives and -0.0, "
-          f"subnormals, rows 2 n 2^24+3 in {check_s:.2f}s: "
-          f"max_abs_err={worst:.3e}; one global fire ({len(fire)} launches, "
-          f"L2 flushed before each): ms={ms:.4f} "
-          f"ms_per_launch={ms / len(fire):.4f} plain_ms={plain_ms:.4f} "
+    launches = topk_trace_launches(torch, lambda: tkm.topk_compress_many(
+        fire, ks))
+    print(f"phase 6 topk: {n_cases} cases (the {len(set(sizes))} leaf sizes "
+          f"of ResNet-18 at rows {TOPK_ROWS}, k=1, k=n, bf16 ties, all zero, "
+          f"+-1 and 1e8, negatives and -0.0, subnormals, ties ending in "
+          f"chunk 0, 2 and 5 of 6, n = 1..3 mod 4 (fp32) and 1..7 mod 8 "
+          f"(bf16) at SMALL_N {small_n} and past it, rows 2 n 2^24+3), each "
+          f"single and in one grouped call per dtype with small and large "
+          f"segments at rows 1, 2, 4 and 16, candidate caps 0 and 1 on "
+          f"{len(capped)} of them: bit-identical to topk_compress_plain and "
+          f"topk_compress_radix_plain in {check_s:.2f}s; control without "
+          f"eq_before differs in {control} indices")
+    print(f"phase 6 topk ResNet-18 fire ({len(fire)} leaves x {TOPK_ROWS} "
+          f"rows, fp32, L2 flushed): grouped ms={ms:.4f} "
+          f"(readings {fmt(readings)}, host enqueue up to {host_ms:.3f} ms) "
+          f"per_leaf_ms={leaf_ms:.4f} (55 calls, flushed before each) "
+          f"plain_ms={plain_ms:.4f} (55 calls, flushed before each) "
           f"torch_topk_ms={library_ms:.4f} (torch.topk(|x|, k, "
-          f"sorted=False) leaves the tie order unspecified) "
-          f"bound_ms={bound_ms:.4f} (bytes, {nbytes} B)")
+          f"sorted=False) per leaf after one flush, tie order unspecified; "
+          f"host enqueue up to {lib_host:.3f} ms) bound_ms={bound_ms:.4f} (bytes, {nbytes} B) "
+          f"launches_per_fire={launches} (profiler)")
+    del fire
+    rwkv = phase_topk_rwkv(torch, randn, k_for, flush)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes"}
+            "bound_by": "bytes", "per_leaf_ms": leaf_ms,
+            "rwkv_fire_ms": rwkv["ms"], "rwkv_fire_bound_ms": rwkv["bound_ms"],
+            "rwkv_fire_library_ms": rwkv["library_ms"],
+            "launches_per_fire": launches}
+
+
+def topk_trace_launches(torch, fn) -> int:
+    """Kernels whose name starts with topk_ in a profiler trace of fn."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1)   # the trace's first kernel
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels, _ = trace_kernels(prof, os.path.join(tmp, "topk.json.gz"))
+    if not kernels:
+        fail("topk: the profiler saw no kernel of the fire")
+    return sum("topk_" in name for name, _, _, _ in kernels)
+
+
+def phase_topk_rwkv(torch, randn, k_for, flush):
+    """One global fire of rwkv6-1.6b at phase 12's size (25 leaves x 4
+    learner rows, fp32, 7.85 GB) in the reducer's groups: each group held
+    against the plain version, then the kernel's time against torch.topk
+    and the bound.  Freed before it returns."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.topk_compress import topk_compress_many
+    sizes = rwkv_leaf_sizes()
+    fire = [randn(4, n) for n in sizes]
+    ks = [k_for(n) for n in sizes]
+    groups = topk_groups(sizes, 4)
+    for g in groups:
+        outs = topk_compress_many([fire[i] for i in g], [ks[i] for i in g])
+        for i, (v, idx) in zip(g, outs):
+            vp, ip = kref.topk_compress_plain(fire[i], ks[i])
+            if not (torch.equal(idx, ip) and same_bits(torch, v, vp)):
+                fail(f"topk rwkv fire leaf {i} (n {sizes[i]}) differs from "
+                     f"the plain version")
+            del vp, ip
+        del outs
+
+    def kernel_fire():
+        for g in groups:
+            topk_compress_many([fire[i] for i in g], [ks[i] for i in g])
+
+    readings, host_ms = fire_ms(torch, kernel_fire, flush, 5)
+    library, lib_host = fire_ms(
+        torch, lambda: [torch.topk(x.abs(), k, sorted=False)
+                        for x, k in zip(fire, ks)], flush, 3, strict=False)
+    nbytes = sum(x.numel() * 4 + k * 4 * 8 for x, k in zip(fire, ks))
+    out = {"ms": statistics.median(readings),
+           "library_ms": statistics.median(library),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    print(f"phase 6 topk rwkv6-1.6b fire ({len(sizes)} leaves of "
+          f"{RWKV_LAYERS} layers x 4 rows, fp32, {sum(sizes) * 16} B) in "
+          f"{len(groups)} grouped calls (the reducer's 1 GiB groups), each "
+          f"leaf bit-identical to plain: ms={out['ms']:.4f} (readings "
+          f"{fmt(readings)}, host enqueue up to {host_ms:.3f} ms) "
+          f"torch_topk_ms={out['library_ms']:.4f} (host enqueue up to "
+          f"{lib_host:.3f} ms) bound_ms="
+          f"{out['bound_ms']:.4f} (bytes, {nbytes} B)")
+    del fire
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -946,6 +1212,24 @@ def resnet_task(torch):
             eval_batch)
 
 
+def zero_counts(counters):
+    """Set every kernel's launch count (and a grouped kernel's count of
+    calls) to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "calls"):
+            fn.calls = 0
+
+
+def read_counts(counters):
+    """Each kernel's launch count, and NAME_calls for a grouped kernel's
+    calls (top-k: one call serves the segments of a group)."""
+    out = {name: fn.launches for name, fn in counters.items()}
+    out.update({f"{name}_calls": fn.calls for name, fn in counters.items()
+                if hasattr(fn, "calls")})
+    return out
+
+
 def train_rounds(torch, hier, counters):
     """Simulator.run(TRAIN_ROUNDS) at P = 16 as (1, 4, 4), sgd(0.1), 32
     examples per learner per step, with every launch count in
@@ -975,13 +1259,12 @@ def train_rounds(torch, hier, counters):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     res = sim.run(TRAIN_ROUNDS)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     sim.round_fn = round_fn
     for name in ("losses", "eval_losses", "eval_accs", "grad_sq_norms"):
@@ -1074,7 +1357,7 @@ def profile_round(torch, rnd, state, batch, label, classes):
     if not kernels:
         print(f"{label} profile: the profiler saw no device time "
               f"(device breakdown not measured)")
-        return
+        return None
     busy = busy_us(kernels)
     by = by_class(kernels, classes)
     summed = sum(by.values())
@@ -1101,6 +1384,7 @@ def profile_round(torch, rnd, state, batch, label, classes):
     print(f"{label} host CUDA API (ms per profiled round): memory calls "
           f"{mem / 1e3:.3f}; top: " + " | ".join(
               f"{k} {v / 1e3:.3f}" for v, k in top_api))
+    return kernels
 
 
 def phase_train(torch):
@@ -1118,12 +1402,14 @@ def phase_train(torch):
     hier = HierAvgParams(plan=TRAIN_PLAN, bucket_bytes=0)
     sim, res, loss_fn, walls, run_s, launches, peak = train_rounds(
         torch, hier, {"topk_compress": tk})
+    calls = launches["topk_compress_calls"]
     launches = launches["topk_compress"]
     n_leaves = len(leaves(res.state.params))
     n_params = sum(p[0, 0, 0].numel() for p in leaves(res.state.params))
-    if launches != n_leaves * TRAIN_ROUNDS:
+    if launches != n_leaves * TRAIN_ROUNDS or calls != TRAIN_ROUNDS:
         fail(f"topk_compress launches {launches} != {n_leaves} leaves x "
-             f"{TRAIN_ROUNDS} global fires")
+             f"{TRAIN_ROUNDS} global fires, or its calls {calls} != one "
+             f"grouped call a fire")
     parts = round_parts(torch, sim, res, loss_fn)
     # yardstick: the local mean by torch.mean (whose reduction order is
     # not fixed), timed the same way in the same run
@@ -1140,7 +1426,8 @@ def phase_train(torch):
           f"{parts['local']:.3f} (torch.mean yardstick {torch_mean_ms:.3f}) "
           f"global_topk_reduction_ms="
           f"{parts['global']:.3f} peak_mem_gib={peak:.2f} "
-          f"topk_launches={launches}")
+          f"topk_launches={launches} (leaves served) in {calls} grouped "
+          f"calls")
 
     # kernel against plain, through the whole trainer: 2 rounds from one
     # converted state on the same batches
@@ -1163,11 +1450,18 @@ def phase_train(torch):
           f"{fmt(lk.tolist())} bit-identical")
     del sk, sp, pairs, np_state
 
-    profile_round(torch, make_hier_round(loss_fn, sgd(0.1), hier),
-                  res.state, batches[0],
-                  "phase 7 (one round, 8 steps + 4 local means + 1 global "
-                  "top-k)", TRAIN_CLASSES)
-    return launches
+    kernels = profile_round(torch, make_hier_round(loss_fn, sgd(0.1), hier),
+                            res.state, batches[0],
+                            "phase 7 (one round, 8 steps + 4 local means + 1 "
+                            "global top-k)", TRAIN_CLASSES)
+    per_fire = sum("topk_" in name for name, _, _, _ in kernels or [])
+    if kernels and not 0 < per_fire <= TOPK_LAUNCHES_PER_FIRE:
+        fail(f"phase 7: {per_fire} top-k kernels in the profiled round's "
+             f"one global fire (limit {TOPK_LAUNCHES_PER_FIRE})")
+    print(f"phase 7 trace: {per_fire} top-k kernel launches in the round's "
+          f"one global fire (limit {TOPK_LAUNCHES_PER_FIRE})" if kernels else
+          "phase 7 trace: top-k launches per fire not measured (no trace)")
+    return launches, calls
 
 
 def mean_cast_bit_identity(torch, params):
@@ -1319,12 +1613,14 @@ def phase_codec_train(torch):
     counters = {"qint8_pack": qp, "qint8_unpack": qu, "topk_compress": tk,
                 "batched_qr": bq}
     # buckets per fire on the uniform layout x fires in the 3 rounds
+    # (Pipelined hands the top-k kernel one bucket a call)
     expect = {CODEC_PLANS[0]: {"qint8_pack": 10 * 4 * TRAIN_ROUNDS,
                                "qint8_unpack": 10 * 4 * TRAIN_ROUNDS,
                                "topk_compress": 10 * TRAIN_ROUNDS,
+                               "topk_compress_calls": 10 * TRAIN_ROUNDS,
                                "batched_qr": 0},
               CODEC_PLANS[1]: {"qint8_pack": 0, "qint8_unpack": 0,
-                               "topk_compress": 0,
+                               "topk_compress": 0, "topk_compress_calls": 0,
                                "batched_qr": 10 * TRAIN_ROUNDS}}
     out = {}
     for tag, spec in zip("AB", CODEC_PLANS):
@@ -2133,8 +2429,7 @@ def lm_phase(torch, *, label, arch, n_layers, hier, batch, seq, rounds,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p[0, 0, 0].numel() for p in leaves(state.params))
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     walls, losses, evals = [], [], []
     for _ in range(rounds):
         rb = loader.next_round()
@@ -2147,7 +2442,7 @@ def lm_phase(torch, *, label, arch, n_layers, hier, batch, seq, rounds,
         with torch.no_grad():
             evals.append(bundle.loss_fn(unstack_first(state.params),
                                         eval_batch)[0].item())
-    launches = {n: fn.launches for n, fn in counters.items()}
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not (np_isfinite(losses) and np_isfinite(evals)):
         fail(f"{label}: losses not finite: {losses} {evals}")
@@ -2213,13 +2508,16 @@ def lm_phase(torch, *, label, arch, n_layers, hier, batch, seq, rounds,
 
 def check_rwkv_launches(launches, cfg, hier, rounds):
     steps = hier.steps_per_round * rounds
+    groups = topk_groups(lm_leaf_sizes(cfg), 4)
     want = {"rwkv6_wkv_forward": cfg.n_layers * (steps + rounds),
             "rwkv6_wkv_backward": cfg.n_layers * steps,
             "topk_compress": 25 * rounds,
+            "topk_compress_calls": len(groups) * rounds,
             "flash_attention_forward": 0, "flash_attention_backward": 0}
     if launches != want:
         fail(f"rwkv launches {launches} != {want} (layers x (steps + "
-             f"evals), layers x steps, 25 leaves x global fires)")
+             f"evals), layers x steps, 25 leaves and {len(groups)} grouped "
+             f"calls x global fires)")
 
 
 def check_dense_launches(launches, cfg, hier, rounds):
@@ -2227,7 +2525,7 @@ def check_dense_launches(launches, cfg, hier, rounds):
     want = {"flash_attention_forward": cfg.n_layers * (steps + rounds),
             "flash_attention_backward": cfg.n_layers * steps,
             "rwkv6_wkv_forward": 0, "rwkv6_wkv_backward": 0,
-            "topk_compress": 0}
+            "topk_compress": 0, "topk_compress_calls": 0}
     if launches != want:
         fail(f"dense launches {launches} != {want} (layers x (steps + "
              f"evals), layers x steps)")
@@ -2327,7 +2625,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     topk = phase_topk(torch)
-    topk_launches = phase_train(torch)
+    topk_launches, topk_calls = phase_train(torch)
     torch.cuda.empty_cache()
     pack, unpack, qr = phase_codecs(torch)
     codec_launches = phase_codec_train(torch)
@@ -2348,7 +2646,8 @@ def main() -> None:
         entry("flash_decode", "flash_decode.cu",
               "src/repro/kernels/flash_decode.py:100", launches, kern),
         entry("topk_compress", "topk_compress.cu",
-              "src/repro/kernels/topk_compress.py:175", topk_launches, topk),
+              "src/repro/kernels/topk_compress.py:175", topk_launches,
+              {**topk, "grouped_calls": topk_calls}),
         entry("qint8_pack", "qint8_pack.cu",
               "src/repro/kernels/qint8_pack.py:66",
               codec_launches["qint8_pack"], pack),

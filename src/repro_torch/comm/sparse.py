@@ -11,11 +11,13 @@ arXiv:1805.09767):
     xhat_j  = ref_j + dense(payload)
     out     = mean_j xhat_j ; ref <- out     # reference tracks consensus
 
-Top-k runs ``kernels/ops.py::topk_compress`` (the hand-written CUDA
-kernel for CUDA tensors, the plain version for CPU tensors) once per leaf,
-or once per bucket under the bucket engine (comm/bucket.py), on
-``[pods * G * S, n]`` rows in fp32.  Random-k draws one support shared by
-all learners from a ``torch.Generator`` seeded from the carried RNG state.
+Top-k runs ``kernels/ops.py::topk_compress_many`` (the hand-written CUDA
+kernel for CUDA tensors, the plain version for CPU tensors) on
+``[pods * G * S, n]`` rows in fp32: one call for each group of consecutive
+leaves (or buckets, under the bucket engine, comm/bucket.py) whose deltas
+fit ``TopKReducer.group_bytes``, a larger one alone.  Random-k draws one
+support shared by all learners from a ``torch.Generator`` seeded from the
+carried RNG state, leaf by leaf.
 """
 from __future__ import annotations
 
@@ -82,6 +84,20 @@ def _scatter_rows(vals: torch.Tensor, idx: torch.Tensor,
     return out.scatter_(1, idx.long(), vals.float())
 
 
+def delta_groups(nbytes, budget: int):
+    """Consecutive leaves of these fp32 delta sizes (bytes) in groups of at
+    most ``budget`` bytes, a larger leaf alone: lists of leaf indices."""
+    groups, held = [], 0
+    for i, b in enumerate(nbytes):
+        if groups and held + b <= budget:
+            groups[-1].append(i)
+            held += b
+        else:
+            groups.append([i])
+            held = b
+    return groups
+
+
 class _SparseEFReducer(Reducer):
     """Shared machinery of top-k / random-k; subclasses pick the support."""
 
@@ -134,8 +150,15 @@ class _SparseEFReducer(Reducer):
                        err=[s.err[0] for s in per_bucket],
                        key=_advanced(state.key))
 
+    # bytes of fp32 deltas selected in one call: consecutive leaves are
+    # grouped up to it, a larger leaf goes alone (0: one leaf a call)
+    group_bytes = 0
+
     def _select(self, delta2d: torch.Tensor, k: int, stream: int):
         raise NotImplementedError
+
+    def _select_many(self, deltas, ks, streams):
+        return [self._select(d, k, s) for d, k, s in zip(deltas, ks, streams)]
 
     def compress(self, tree, state: EFState):
         seed, fire, offset = state.key.tolist()
@@ -143,15 +166,22 @@ class _SparseEFReducer(Reducer):
         refs = leaves(state.ref)
         errs = leaves(state.err)
         payload, new_errs = [], []
-        for i, (x, r, e) in enumerate(zip(flat, refs, errs)):
-            rows, n = _rows(x), per_learner_size(x)
-            delta = (x.float() - r.float()).reshape(rows, n) \
-                + e.reshape(rows, n)
-            vals, idx = self._select(delta, self.k_for(n),
-                                     stream_seed(seed, fire, offset + i))
-            new_errs.append(
-                (delta - _scatter_rows(vals, idx, n)).reshape(e.shape))
-            payload.append((vals, idx))
+        for group in delta_groups([4 * x.numel() for x in flat],
+                                  self.group_bytes):
+            deltas = []
+            for i in group:
+                x, r, e = flat[i], refs[i], errs[i]
+                rows, n = _rows(x), per_learner_size(x)
+                deltas.append((x.float() - r.float()).reshape(rows, n)
+                              + e.reshape(rows, n))
+            sel = self._select_many(
+                deltas, [self.k_for(d.shape[1]) for d in deltas],
+                [stream_seed(seed, fire, offset + i) for i in group])
+            for j, (i, (vals, idx)) in enumerate(zip(group, sel)):
+                delta, deltas[j] = deltas[j], None    # freed once used
+                new_errs.append((delta - _scatter_rows(
+                    vals, idx, delta.shape[1])).reshape(errs[i].shape))
+                payload.append((vals, idx))
         return payload, EFState(state.ref, unflatten(treedef, new_errs),
                                 _advanced(state.key))
 
@@ -185,9 +215,12 @@ class TopKReducer(_SparseEFReducer):
     delta."""
 
     name = "topk"
+    # 1 GiB: a ResNet-18 fire at 16 learners (715 MB) in one call, each
+    # 2.15 GB embedding of rwkv6-1.6b at 4 learners alone
+    group_bytes = 1 << 30
 
-    def _select(self, delta2d, k, stream):
-        return ops.topk_compress(delta2d, k, impl=self.impl)
+    def _select_many(self, deltas, ks, streams):
+        return ops.topk_compress_many(deltas, ks, impl=self.impl)
 
 
 class RandKReducer(_SparseEFReducer):

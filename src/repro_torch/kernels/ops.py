@@ -13,7 +13,7 @@ or the call raises.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -63,6 +63,25 @@ def topk_compress(x: torch.Tensor, k: int, *, impl: str = "auto"
         return kref.topk_compress_plain(x, k)
     from repro_torch.kernels.topk_compress import topk_compress as tk
     return tk(x, k)
+
+
+def topk_compress_many(xs: Sequence[torch.Tensor], ks: Sequence[int], *,
+                       impl: str = "auto"
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`topk_compress` of each (x, k), in one kernel call for CUDA
+    tensors (all of one dtype).  The plain version calls
+    :func:`topk_compress` on each in turn.  The kernel counts a launch per
+    segment in ``kernels.topk_compress.topk_compress.launches`` and the
+    grouped calls in ``.calls``."""
+    xs, ks = list(xs), [int(k) for k in ks]
+    if len(xs) != len(ks):
+        raise ValueError(f"need one k per x, got {len(xs)} and {len(ks)}")
+    if not xs:
+        return []
+    if _resolve(impl, xs[0]) == "plain":
+        return [topk_compress(x, k, impl="plain") for x, k in zip(xs, ks)]
+    from repro_torch.kernels.topk_compress import topk_compress_many as tkm
+    return tkm(xs, ks)
 
 
 def qint8_pack(x: torch.Tensor, block: int, *,

@@ -141,6 +141,105 @@ def topk_compress_plain(x: torch.Tensor, k: int
     return torch.gather(x, 1, idx), idx.to(torch.int32)
 
 
+# the CUDA kernel's decomposition (csrc/topk_compress.cu)
+TOPK_DIGITS = (11, 11, 9)  # key bits 30..20, 19..9, 8..0 (DIGIT1..3)
+TOPK_SMALL_N = 8192        # rows up to this take one CTA (SMALL_N)
+TOPK_CHUNK = 16384         # elements per chunk of the compaction (CHUNK)
+TOPK_CAP_SHIFT = 4         # candidates per large row: n >> TOPK_CAP_SHIFT
+
+
+def topk_keys(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's keys: the fp32 bits of |x| (bf16 widened), as int64;
+    their order is the magnitude order."""
+    return x.float().view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+
+
+def topk_radix_select(x: torch.Tensor, k: int, *, cap: Optional[int] = None,
+                      small_n: int = TOPK_SMALL_N,
+                      digits: Tuple[int, ...] = TOPK_DIGITS):
+    """The k-th largest key t of each row of x [rows, n], fixed digit by
+    digit from the top as the kernel does: per digit, a histogram of the
+    keys that match the digits fixed so far, walked from the top bin to
+    the one that holds the left-th largest.  A large row (n > small_n)
+    takes its last digit over the keys of digit 1's bin (the candidates
+    pass B collects) when there are at most ``cap`` of them (default
+    n >> TOPK_CAP_SHIFT), else over the row again.
+
+    Returns per row (t, fill = k - #(key > t), keys in digit 1's bin, 0 for
+    a small row, and whether the candidates were used), as lists."""
+    rows, n = x.shape
+    keys = topk_keys(x)
+    cap = n >> TOPK_CAP_SHIFT if cap is None else min(int(cap), n)
+    large = n > small_n
+    ts, fills, c1s, used = [], [], [], []
+    for r in range(rows):
+        source, left, prefix, above = keys[r], int(k), 0, 31
+        c1, use = 0, False
+        for p, bits in enumerate(digits):
+            shift = above - bits
+            pool = source[(source >> above) == prefix]
+            hist = torch.bincount((pool >> shift) & ((1 << bits) - 1),
+                                  minlength=1 << bits)
+            from_top = hist.flip(0).cumsum(0)
+            j = int(torch.searchsorted(from_top, left))
+            d = (1 << bits) - 1 - j
+            left -= int(from_top[j] - hist[d])
+            prefix, above = (prefix << bits) | d, shift
+            if p == 0 and large:
+                c1 = int(hist[d])
+                use = c1 <= cap
+            if p == 1 and use:
+                source = pool                  # the candidates
+        ts.append(prefix)
+        fills.append(left)
+        c1s.append(c1)
+        used.append(use)
+    return ts, fills, c1s, used
+
+
+def topk_compress_radix_plain(x: torch.Tensor, k: int, *,
+                              cap: Optional[int] = None,
+                              small_n: int = TOPK_SMALL_N,
+                              chunk: int = TOPK_CHUNK,
+                              digits: Tuple[int, ...] = TOPK_DIGITS
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk_compress_plain` by the CUDA kernel's decomposition.
+
+    t and fill come from :func:`topk_radix_select`.  A large row is then
+    compacted chunk by chunk in index order, each chunk of ``chunk``
+    elements given the row's counts of keys above t (gt) and equal to it
+    (eq) in the chunks before it: its kept elements start at slot
+    gt_before + min(fill, eq_before), and a tie is kept while its rank
+    among the row's ties is below fill, so only the chunk where the taken
+    ties end takes part of its ties.  A small row is one chunk.  Same
+    arguments and outputs as :func:`topk_compress_plain`; ``cap``,
+    ``small_n``, ``chunk`` and ``digits`` are the kernel's constants, which
+    a test may change (a ``cap`` of 0 takes the path without candidates).
+    """
+    rows, n = x.shape
+    ts, fills, _, _ = topk_radix_select(x, k, cap=cap, small_n=small_n,
+                                        digits=digits)
+    keys = topk_keys(x)
+    step = n if n <= small_n else chunk
+    vals = x.new_empty((rows, k))
+    idx = torch.empty((rows, k), dtype=torch.int64, device=x.device)
+    for r in range(rows):
+        t, fill = ts[r], fills[r]
+        gt_before = eq_before = 0
+        for lo in range(0, n, step):
+            kc = keys[r, lo:lo + step]
+            gt, eq = kc > t, kc == t
+            rank = eq_before + torch.cumsum(eq, 0) - eq.long()
+            pos = torch.nonzero(gt | (eq & (rank < fill))).flatten()
+            slot = gt_before + min(fill, eq_before) + torch.arange(
+                len(pos), device=x.device)
+            vals[r, slot] = x[r, lo + pos]
+            idx[r, slot] = lo + pos
+            gt_before += int(gt.sum())
+            eq_before += int(eq.sum())
+    return vals, idx.to(torch.int32)
+
+
 # --------------------------------------------------------------------- #
 # qint8: fused quantize + pack, and its inverse
 
