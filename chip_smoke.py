@@ -205,9 +205,10 @@ CODEC_PLANS = ("local@2:qint8/global@8:topk:0.05",
 # element: BF16_ULPS ulps of max(|kernel|, |plain|) plus KERN_REL_TOL *
 # max|plain|.  Controls that must fail it: y and dk with the bonus u's
 # term dropped, attention one key short of its window (forward and dK),
-# query head h on kv head h % Hkv instead of h // group, and dr and dw
-# read with S_{t+1} for S_t (an off-by-one in the WKV backward's ring of
-# on-chip states).
+# query head h on kv head h % Hkv instead of h // group, dr and dw read
+# with S_{t+1} for S_t (an off-by-one in the WKV backward's ring of on-chip
+# states), and y with r_{t+1} for r_t at the first step of every stage (a
+# fault in the WKV forward's staging).
 KERN_REL_TOL = 1e-5
 # phases 12 and 13: full-width LM training through the Hier-AVG trainer
 LM_MARKOV_VOCAB = 512       # the Markov chain's token ids (a 65,536^2
@@ -2013,6 +2014,17 @@ def shifted_state_control(r, k, v, w, u, dr, dk, dw, dy):
             w * dw + k * (dk - u * r * dyv))
 
 
+def staging_fault_control(kref, r, k, v, w, u, s0, stage):
+    """y as a forward whose staging read r_{t+1} for r_t at the first step
+    of every stage of ``stage`` steps would give it: the plain forward on
+    r so shifted (the states never read r)."""
+    import torch
+    t = torch.arange(0, r.shape[1] - 1, stage, device=r.device)
+    bad = r.clone()
+    bad[:, t] = r[:, t + 1]
+    return kref.rwkv6_wkv_forward_plain(bad, k, v, w, u, s0)[0]
+
+
 def phase_wkv(torch):
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.rwkv6_wkv import (rwkv6_wkv_backward,
@@ -2023,7 +2035,7 @@ def phase_wkv(torch):
              ("S192 fp32", 8, 192, 32, 64, torch.float32),
              ("S192 bf16", 8, 192, 32, 64, torch.bfloat16),
              ("S130 D32 fp32", 2, 130, 4, 32, torch.float32)]
-    worst, parts, blocked = {}, [], []
+    worst, parts, blocked, fblocked = {}, [], [], []
     for i, (label, b, s, h, d, dtype) in enumerate(cases):
         inp = wkv_inputs(torch, b, s, h, d, dtype, seed=40 + i)
         r, k, v, w, u, s0, dy, dsT = inp
@@ -2031,8 +2043,11 @@ def phase_wkv(torch):
         gk = rwkv6_wkv_backward(r, k, v, w, u, ck, dy, dsT)
         yp, sTp, cp = kref.rwkv6_wkv_forward_plain(r, k, v, w, u, s0)
         gp = kref.rwkv6_wkv_backward_plain(r, k, v, w, u, cp, dy, dsT)
-        # the kernel's schedule (row blocks, sub-checkpoints, dv over
-        # the blocks in order), emulated in plain PyTorch
+        # the kernels' schedules, emulated in plain PyTorch: the forward's
+        # 8 x 4 tiles, y's row-group partials summed in order and q_t once
+        # per step; the backward's row blocks, sub-checkpoints and dv over
+        # the blocks in order
+        ye = kref.rwkv6_wkv_forward_blocked_plain(r, k, v, w, u, s0)[0]
         ge = kref.rwkv6_wkv_backward_blocked_plain(r, k, v, w, u, cp, dy,
                                                    dsT)
         torch.cuda.synchronize()
@@ -2048,15 +2063,21 @@ def phase_wkv(torch):
                      a, e)[1] for name, a, e in zip(names[2:], gk, ge)]
         blocked.append(f"{label}: " + " ".join(
             f"{n}={m:.2e}" for n, m in zip(names[2:], meas)))
+        _, meas = hold(torch, f"wkv {label} y against the emulation", yk,
+                       ye)
+        fblocked.append(f"{label}: y={meas:.2e}")
         if i == 0:
             train = (inp, ck, yp, gp)
-        del inp, yk, sTk, ck, gk, yp, sTp, cp, gp, ge
+        del inp, yk, sTk, ck, gk, yp, sTp, cp, gp, ge, ye
     (r, k, v, w, u, s0, dy, dsT), ck, yp, gp = train
     # controls at the training shape: the bonus u dropped from y, and
-    # from dk (a backward that forgets u's term); dr and dw read with
-    # S_{t+1} for S_t
+    # from dk (a backward that forgets u's term); y with r_{t+1} at every
+    # stage start (a staging fault); dr and dw read with S_{t+1} for S_t
     ctl_y = control(torch, "y without u", yp - v * (r * u[:, None] * k)
                     .sum(-1, keepdim=True), yp)
+    ctl_stage = control(torch, "y with r_(t+1) at stage starts",
+                        staging_fault_control(kref, r, k, v, w, u, s0,
+                                              kref.WKV_FWD_STAGE), yp)
     ctl_dk = control(torch, "dk without u", gp[1] - u[:, None] * r
                      * (dy * v).sum(-1, keepdim=True), gp[1])
     bad_dr, bad_dw = shifted_state_control(r, k, v, w, u[:, None], gp[0],
@@ -2074,28 +2095,38 @@ def phase_wkv(torch):
             (yk, sTk, ck1, *gk), (yk2, sTk2, ck2, *gk2))):
         fail("wkv: a rerun gave other bits")
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    f_ms = time_ms(torch, lambda: rwkv6_wkv_forward(r, k, v, w, u, s0),
-                   flush, 20)
+    # each kernel's time is the median of 10 single-call readings: a
+    # reading that a host stall longer than time_ms's sleep let into the
+    # window (0.69 ms against 0.11 on an H100) moves a mean, not a median
+    f_reps = [time_ms(torch, lambda: rwkv6_wkv_forward(r, k, v, w, u, s0),
+                      flush, 1) for _ in range(10)]
+    f_ms = statistics.median(f_reps)
     b_reps = [time_ms(torch, lambda: rwkv6_wkv_backward(
         r, k, v, w, u, ck1, dy, dsT), flush, 1) for _ in range(10)]
-    b_ms = statistics.fmean(b_reps)
+    b_ms = statistics.median(b_reps)
     f_plain = time_ms(torch, lambda: kref.rwkv6_wkv_forward_plain(
         r, k, v, w, u, s0), flush, 2)
     b_plain = time_ms(torch, lambda: kref.rwkv6_wkv_backward_plain(
         r, k, v, w, u, ck1, dy, dsT), flush, 1)
     (fb, fby, fbytes), (bb_, bby, bbytes) = wkv_bound(8, 512, 32, 64, 4)
     scratch, rereads = wkv_bwd_extra_bytes(8, 512, 32, 64, 4)
+    ck_bytes = ck1.numel() * ck1.element_size()
     print(f"phase 10 wkv kernels vs plain (fp32 limit {KERN_REL_TOL} of "
           f"max|plain|, bf16 {BF16_ULPS} ulps + that; measures per "
-          f"output): " + " | ".join(parts) + "; backward vs "
+          f"output): " + " | ".join(parts) + "; forward vs "
+          f"rwkv6_wkv_forward_blocked_plain (same limits): "
+          + " | ".join(fblocked) + "; backward vs "
           f"rwkv6_wkv_backward_blocked_plain (same limits): "
           + " | ".join(blocked) + f"; controls: y without u {ctl_y:.3e}, "
-          f"dk without u {ctl_dk:.3e}, dr with S_(t+1) {ctl_dr:.3e}, dw "
-          f"with S_(t+1) {ctl_dw:.3e} (fail, as they must); rerun "
-          f"bit-identical; training shape (B8 S512 H32 D64 fp32, L2 "
-          f"flushed): fwd_ms={f_ms:.4f} plain_ms={f_plain:.4f} "
-          f"bound_ms={fb:.4f} ({fby}, {fbytes} B); bwd_ms={b_ms:.4f} "
-          f"(reps: {fmt(b_reps)}) plain_ms={b_plain:.4f} "
+          f"y with r_(t+1) at stage starts {ctl_stage:.3e}, dk without u "
+          f"{ctl_dk:.3e}, dr with S_(t+1) {ctl_dr:.3e}, dw with S_(t+1) "
+          f"{ctl_dw:.3e} (fail, as they must); rerun bit-identical; "
+          f"training shape (B8 S512 H32 D64 fp32, L2 flushed): "
+          f"fwd_ms={f_ms:.4f} (median of {fmt(f_reps)}) "
+          f"plain_ms={f_plain:.4f} "
+          f"bound_ms={fb:.4f} ({fby}, {fbytes} B; the port's forward also "
+          f"writes {ck_bytes} B of checkpoints); bwd_ms={b_ms:.4f} "
+          f"(median of {fmt(b_reps)}) plain_ms={b_plain:.4f} "
           f"bound_ms={bb_:.4f} ({bby}, {bbytes} B); backward beyond "
           f"inputs, outputs and checkpoints: scratch {scratch} B, input "
           f"re-reads <= {rereads} B; library: none (no single PyTorch "

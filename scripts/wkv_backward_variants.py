@@ -11,8 +11,10 @@ D 64, fp32, L2 flushed before each call):
   * with ``--parent DIR`` (an unpacked checkout of an earlier commit,
     e.g. ``git archive HEAD~1 | tar -x -C _archive/parent``), builds that
     checkout's ``csrc/rwkv6_wkv.cu`` beside this one and holds its forward
-    outputs (y, the final state, the checkpoints) against this one's bit
-    for bit, at fp32 and bf16; then times the two backward kernels in
+    outputs against this one's (the final state and the checkpoints bit
+    for bit, y within phase 10's limit, since builds may sum y in other
+    orders), at fp32 and bf16; then times the
+    two backward kernels in
     turns (parent, this, this, parent; 10 calls each) and prints each
     call's time.  A parent whose backward takes a per-CTA scratch (the
     first port's, before the states were kept on chip) gets one;
@@ -119,8 +121,11 @@ def compare_parent(parent_dir: str, flush) -> None:
             r.device.index, torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         if err or not all(cs.same_bits(torch, a, b)
-                          for a, b in zip(ours, theirs)):
-            cs.fail(f"forward at {dtype} differs from the parent's build")
+                          for a, b in zip(ours[1:], theirs[1:])):
+            cs.fail(f"forward states at {dtype} differ from the parent's "
+                    f"build")
+        cs.hold(torch, f"forward y at {dtype} against the parent's",
+                ours[0], theirs[0])
         same.append(str(dtype).split(".")[-1])
     r, k, v, w, u, s0, dy, dsT = cs.wkv_inputs(torch, 8, 512, 32, 64,
                                                torch.float32, seed=40)
@@ -135,7 +140,8 @@ def compare_parent(parent_dir: str, flush) -> None:
     for name, fn in order:
         readings[name] += [cs.time_ms(torch, lambda: fn(*args), flush, 1)
                            for _ in range(10)]
-    print(f"parent {parent_dir}: forward bit-identical ({', '.join(same)}); "
+    print(f"parent {parent_dir}: forward states bit-identical, y within "
+          f"phase 10's limit ({', '.join(same)}); "
           f"backward within phase 10's limit of the parent's; training "
           f"case bwd_ms (parent, this, this, parent, 10 calls each): "
           f"parent={cs.fmt(readings['parent'])} "

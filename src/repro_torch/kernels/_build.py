@@ -69,15 +69,17 @@ def build_variants(sources: Dict[str, str], out_dir: Path, stem: str
                    ) -> Dict[str, ctypes.CDLL]:
     """Compile edited copies of a source: each name's text is written to
     ``out_dir/<stem>_<name>.cu`` and built, all in parallel, with the
-    kernels' flags; returns each name's loaded library.  For the study
-    scripts that time variants of a kernel (``scripts/*_variants.py``)."""
+    kernels' flags (nvcc's log in ``BUILD_LOG["<stem>_<name>"]``); returns
+    each name's loaded library.  For the study scripts that time variants
+    of a kernel (``scripts/*_variants.py``)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, text in sources.items():
         cu = out_dir / f"{stem}_{name}.cu"
         cu.write_text(text)
         jobs[name] = (cu, out_dir / f"lib{stem}_{name}.so")
-    _compile(jobs, "variant {}")
+    BUILD_LOG.update({f"{stem}_{name}": log for name, log in
+                      _compile(jobs, "variant {}").items()})
     return {name: ctypes.CDLL(str(out)) for name, (_, out) in jobs.items()}
 
 

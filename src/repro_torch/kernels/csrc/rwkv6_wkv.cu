@@ -12,19 +12,74 @@
 // [B*H, D] fp32, one row per (b, h), so that each learner of the trainer's
 // vmap keeps its own u when learners are folded into B; states are fp32.
 //
-// Forward.  Bound: latency.  The S steps of a (b, h) are a chain: each step
-// reads the state it wrote.  The bytes (the four inputs and y, once each)
-// take about 0.05 ms at the training shape (B*H = 256, S = 512, D = 64) and
-// the flops (about 4 D^2 per step) less; a step costs a dependent pass over
-// the D state entries a thread holds, so the time is S times the latency
-// of one step.  One CTA of D threads per (b, h) (256 CTAs at the training
-// shape); thread i keeps column S[:, i] in D registers, as the official
-// wkv6 CUDA kernel does, so a step needs no synchronisation.  r, k, w and v
-// are staged through shared memory STAGE_F steps at a time (every thread
-// reads all of r_t, k_t, w_t; reads are broadcasts); y's sum over j runs in
-// four independent partial sums.  The state at the start of every CHUNK =
-// 64 steps is written as a checkpoint [B*H, NC, D, D] for the backward
-// (33.5 MB a layer at the training shape), the final state as sT.
+// Forward.  With q_t = r_t . (u * k_t), computed once per step:
+//
+//     y_t[i] = v_t[i] q_t + sum_j r_t[j] S[j,i]
+//
+// Bound: issuing fp32 operations, near the bytes.  A state entry costs
+// three operations a step (k_j v_i, the update's FMA and y's FMA): at the
+// training shape (B*H = 256, S = 512, D = 64) 256 x 512 x 4096 x 3 = 1.61 G
+// lane operations, 0.048 ms at 128 lanes x 132 SMs x 1.98 GHz; the inputs,
+// y and the two states take 176,226,304 B, 0.053 ms at 3.35 TB/s, and the
+// checkpoints 33,554,432 B more.  A step's chain is one FMA per entry, so
+// nothing but the issue of those operations, their shared loads and the
+// warps' stalls bounds it: on an H100 it takes 0.111 ms, 2.1 times the
+// bytes' bound (PERF.md).  The design:
+//
+//   * The state over the threads.  One CTA per (b, h), D^2 / (FWD_TR x
+//     FWD_TC) threads (128 at D 64, 32 at D 32), each owning an FWD_TR x
+//     FWD_TC = 8 x 4 tile of S in 32 registers: rows row0 .. row0 + 7,
+//     columns col0 .. col0 + 3; the D / 4 threads of a row group run along
+//     the columns.  Per step a thread reads its rows' r, k, w (two 16-byte
+//     shared loads each, broadcast over the row group) and its columns' v
+//     (one), and issues 32 + 32 + 32 fp32 operations.  Two CTAs of 4 warps
+//     share an SM at the training shape (one alone leaves the SM half
+//     idle: 132 CTAs take 0.074 ms, 264 0.111); the thread takes 184
+//     registers (fp32, D 64; no spills), __launch_bounds__(128, 2).  4 x 4
+//     tiles (8 warps a CTA, 16 an SM) took 0.152-0.155 ms, 4 x 8 tiles
+//     0.209-0.211 (their 16 row groups' partials leave room for one CTA an
+//     SM; PERF.md): a bigger tile spends fewer loads, stores and sums per
+//     entry.
+//   * Rows couple only through y's sum over j.  A thread sums its tile's
+//     rows and writes the row group's partial [4] of the step to shared
+//     memory; once per stage the CTA sums the D / FWD_TR row groups'
+//     partials in order 0, 1, .. and adds v_t q_t.  No shuffles in the
+//     steps and no atomics: a rerun gives the same bits.  (A warp's
+//     butterfly over its row groups first, halving the partials and the
+//     stage's sum, took the same time.)
+//   * The bonus term once per step: q_t is summed while the stage's y is
+//     combined, by the D / 4 threads of a step (4 products each, a
+//     butterfly of log2(D / 4) shuffles), not by every thread.
+//   * Asynchronous staging.  r, k, v, w arrive FWD_STAGE = 16 steps at a
+//     time in a ring of FWD_RING = 3 stages, by 16-byte cp.async copies
+//     issued one stage ahead, so stage n + 1's loads are in flight while
+//     stage n runs (synchronous copies took 19-21% longer); bf16 stays
+//     bf16 in the ring and is converted at use.  One barrier per stage:
+//     stage n's steps write one of two partial buffers while stage n - 1
+//     is combined from the other, which is why the ring holds three
+//     stages (n's, n - 1's v, r, k for the combine, and the one being
+//     filled).  Steps past S are padded with r = 0, k = -0, v = 0, w = 1,
+//     which leave every bit of the state as it is, so a stage is
+//     straight-line code.
+//   * The state's arithmetic is the first port's, bit for bit: each entry
+//     updates as st = fmaf(w_j, st, k_j * v_i) from the same fp32 values,
+//     so sT and every checkpoint are unchanged (and the backward's
+//     gradients with them).  Only y's order of summation is new:
+//
+//       y_t[i] = fmaf(v_t[i], q_t, P_0 + P_1 + .. + P_{D/8-1})  (in order)
+//       P_g    = fmaf chain over rows 8g .. 8g + 7 in order
+//                (r_{8g} S[8g,i] first, a product)
+//       q_t    = butterfly (lane xor D/8 first) over the D / 4 lanes of
+//                fmaf chains r_j (u_j k_j) over j = 4l .. 4l + 3
+//
+//     (kernels/ref.py::rwkv6_wkv_forward_blocked_plain runs this schedule.)
+//
+//   Shared memory per CTA, D 64 fp32 (bf16; D 32 fp32): the ring 48 KB
+//   (24 KB; 24 KB), the row groups' y partials 2 x 16 x 8 x 64 x 4 B =
+//   64 KB (64 KB; 16 KB): 114,688 B (90,112 B; 40,960 B), dynamic.  The
+//   state at the start of every CHUNK = 64 steps is written as a
+//   checkpoint [B*H, NC, D, D] for the backward (33.5 MB a layer at the
+//   training shape), the final state as sT.  Inputs are read once.
 //
 // Backward: the reverse recurrence of kernels/ref.py::
 // rwkv6_wkv_backward_plain, with G the adjoint of the state:
@@ -132,7 +187,14 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int CHUNK = 64;         // steps between checkpoints
-constexpr int STAGE_F = 32;       // steps staged in shared memory, forward
+constexpr int FWD_TR = 8;         // state rows a thread owns, forward
+constexpr int FWD_TC = 4;         // state columns a thread owns
+constexpr int FWD_STAGE = 16;     // steps a stage of the forward's ring holds
+constexpr int FWD_RING = 3;       // stages in the ring
+constexpr int FWD_MIN_CTAS = 2;   // CTAs per SM its registers must allow
+constexpr bool FWD_ASYNC = true;  // the next stage's copies fly during this one
+static_assert(CHUNK % FWD_STAGE == 0, "checkpoints fall on stage starts");
+static_assert(FWD_RING >= 3, "a stage is combined while the next one runs");
 constexpr int BWD_ROWS = 16;      // state rows per CTA of the backward
 constexpr int BWD_SUB = 8;        // steps between its sub-checkpoints
 constexpr int BWD_RPT = 2;        // rows a thread owns
@@ -147,6 +209,10 @@ static_assert(CHUNK % BWD_SUB == 0, "sub-chunks tile a chunk");
 
 // CTAs of the backward's cluster: one (b, h) split by rows
 __host__ __device__ constexpr int bwd_cluster(int d) { return d / BWD_ROWS; }
+// threads of the forward's CTA: one FWD_TR x FWD_TC tile of S each
+__host__ __device__ constexpr int fwd_threads(int d) {
+  return (d / FWD_TR) * (d / FWD_TC);
+}
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -166,68 +232,14 @@ __device__ __forceinline__ size_t seq_off(int b, int t, int h, int lane, int S,
   return (((size_t)b * S + t) * H + h) * D + lane;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(D)
-wkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ w,
-                const float* __restrict__ u, const float* __restrict__ s0,
-                T* __restrict__ y, float* __restrict__ sT,
-                float* __restrict__ ckpt, int S, int H) {
-  __shared__ float r_s[STAGE_F][D], k_s[STAGE_F][D], w_s[STAGE_F][D],
-      v_s[STAGE_F][D], u_s[D];
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - b * H;
-  const int i = threadIdx.x;
-  const int NC = (S + CHUNK - 1) / CHUNK;
-  const size_t sbase = (size_t)bh * D * D;
-
-  float st[D];                      // st[j] = S[j, i]
-#pragma unroll
-  for (int j = 0; j < D; ++j) st[j] = s0[sbase + (size_t)j * D + i];
-  u_s[i] = u[(size_t)bh * D + i];
-
-  for (int t0 = 0; t0 < S; t0 += STAGE_F) {
-    const int n = min(STAGE_F, S - t0);
-    __syncthreads();                // the previous stage is consumed
-    for (int tt = 0; tt < n; ++tt) {
-      const size_t off = seq_off(b, t0 + tt, h, i, S, H, D);
-      r_s[tt][i] = to_f32<T>(r[off]);
-      k_s[tt][i] = to_f32<T>(k[off]);
-      w_s[tt][i] = to_f32<T>(w[off]);
-      v_s[tt][i] = to_f32<T>(v[off]);
-    }
-    __syncthreads();
-    for (int tt = 0; tt < n; ++tt) {
-      const int t = t0 + tt;
-      if (t % CHUNK == 0) {
-        float* c = ckpt + ((size_t)bh * NC + t / CHUNK) * D * D;
-#pragma unroll
-        for (int j = 0; j < D; ++j) c[(size_t)j * D + i] = st[j];
-      }
-      const float vi = v_s[tt][i];
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float ruk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        const float rj = r_s[tt][j], kj = k_s[tt][j];
-        acc[j & 3] = fmaf(rj, st[j], acc[j & 3]);
-        ruk[j & 3] = fmaf(rj * u_s[j], kj, ruk[j & 3]);
-        st[j] = fmaf(w_s[tt][j], st[j], kj * vi);
-      }
-      const float a = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-      const float q = (ruk[0] + ruk[1]) + (ruk[2] + ruk[3]);
-      y[seq_off(b, t, h, i, S, H, D)] = from_f32<T>(fmaf(vi, q, a));
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < D; ++j) sT[sbase + (size_t)j * D + i] = st[j];
-}
-
-// N consecutive elements (N = 2 or 4, aligned to N elements) of device or
-// shared memory, as fp32
+// N consecutive elements (N = 2, 4 or 8, aligned to min(N, 4) elements)
+// of device or shared memory, as fp32
 template <typename T, int N>
 __device__ __forceinline__ void load_n(const T* p, float (&out)[N]) {
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (N == 8) {
+    load_n<T, 4>(p, *reinterpret_cast<float(*)[4]>(out));
+    load_n<T, 4>(p + 4, *reinterpret_cast<float(*)[4]>(out + 4));
+  } else if constexpr (sizeof(T) == 4) {
     if constexpr (N == 4) {
       const float4 x = *reinterpret_cast<const float4*>(p);
       out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
@@ -306,13 +318,196 @@ constexpr size_t bwd_smem_floats() {
          + BWD_SUB * D + 2 * BWD_SUB * BWD_ROWS;           // walk: v k w
 }
 
-// N (2 or 4) consecutive floats to device memory
+// N (2, 4 or 8) consecutive floats to device or shared memory
 template <int N>
 __device__ __forceinline__ void st_f(float* p, const float (&x)[N]) {
-  if constexpr (N == 4)
+  if constexpr (N == 8) {
+    st_f<4>(p, *reinterpret_cast<const float(*)[4]>(x));
+    st_f<4>(p + 4, *reinterpret_cast<const float(*)[4]>(x + 4));
+  } else if constexpr (N == 4)
     *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
   else
     *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 consecutive values to device memory in T (bf16: rounded to nearest
+// even, as from_f32)
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float (&x)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
+    *reinterpret_cast<uint2*>(p) = make_uint2(
+        *reinterpret_cast<const unsigned*>(&a), *reinterpret_cast<const unsigned*>(&b));
+  }
+}
+
+template <typename T, int D>
+constexpr size_t fwd_smem_bytes() {
+  return (size_t)FWD_RING * 4 * FWD_STAGE * D * sizeof(T)           // r k v w
+         + (size_t)2 * FWD_STAGE * (D / FWD_TR) * D * 4;          // y partials
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(fwd_threads(D), FWD_MIN_CTAS)
+wkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ w,
+                const float* __restrict__ u, const float* __restrict__ s0,
+                T* __restrict__ y, float* __restrict__ sT,
+                float* __restrict__ ckpt, int S, int H) {
+  constexpr int TR = FWD_TR, TC = FWD_TC, ST = FWD_STAGE, RING = FWD_RING;
+  constexpr int CG = D / TC;              // threads of a row group (its columns)
+  constexpr int RG = D / TR;              // row groups
+  constexpr int THREADS = fwd_threads(D);
+  constexpr int EPC = 16 / sizeof(T);     // elements a 16-byte copy
+  constexpr int NCOPY = 4 * ST * (D / EPC);   // copies a stage
+  constexpr int LPS = D / 4;              // combine lanes a step, 4 columns each
+  constexpr int GROUPS = ST * LPS;        // combine groups a stage
+  constexpr int SLOT = 4 * ST * D;        // elements a ring slot: [r k v w][ST][D]
+  static_assert(D % TR == 0 && D % TC == 0 && THREADS % 32 == 0, "tile");
+  static_assert(GROUPS % 32 == 0 && THREADS % LPS == 0, "combine: whole warps");
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);                        // [RING][SLOT]
+  float* ypart = reinterpret_cast<float*>(ring + RING * SLOT);  // [2][ST][RG][D]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int tid = threadIdx.x, rg = tid / CG;
+  const int row0 = rg * TR, col0 = (tid % CG) * TC;
+  const int qc = (tid % LPS) * 4;              // its combine columns
+  const int NC = (S + CHUNK - 1) / CHUNK;
+  const int NS = (S + ST - 1) / ST;
+  const size_t sbase = (size_t)bh * D * D;
+  // element (b, t, h, 0) of a [B, S, H, D] tensor
+  const size_t row_at0 = ((size_t)b * S * H + h) * D, HD = (size_t)H * D;
+  auto at = [&](int t) { return row_at0 + (size_t)t * HD; };
+
+  float st[TR][TC];                            // S[row0 + p, col0 + e]
+#pragma unroll
+  for (int p = 0; p < TR; ++p)
+    load_n<float, TC>(s0 + sbase + (size_t)(row0 + p) * D + col0, st[p]);
+  float uq[4];
+  load_n<float, 4>(u + (size_t)bh * D + qc, uq);
+
+  // stage n's r, k, v, w into ring slot n % RING by 16-byte copies, one
+  // commit group per stage (empty past the end); a step past S is padded
+  // with r = 0, k = -0, v = 0, w = 1, so that fmaf(1, st, -0 * 0) = st
+  // to the bit and the stage's steps need no branch
+  auto stage_in = [&](int n) {
+    if (n < NS) {
+      T* slot = ring + (n % RING) * SLOT;
+      const int t0 = n * ST;
+#pragma unroll
+      for (int i = 0; i < (NCOPY + THREADS - 1) / THREADS; ++i) {
+        const int c = tid + i * THREADS;
+        if (NCOPY % THREADS == 0 || c < NCOPY) {
+          const int a = c / (NCOPY / 4), m = (c / (D / EPC)) % ST;
+          const int e0 = (c % (D / EPC)) * EPC;
+          T* dst = slot + (a * ST + m) * D + e0;
+          if (t0 + m < S) {
+            const T* src = a == 0 ? r : a == 1 ? k : a == 2 ? v : w;
+            cp_async_f<4>(reinterpret_cast<float*>(dst),
+                          reinterpret_cast<const float*>(src + at(t0 + m) + e0));
+          } else {
+            const T pad = from_f32<T>(a == 3 ? 1.0f : a == 1 ? -0.0f : 0.0f);
+#pragma unroll
+            for (int e = 0; e < EPC; ++e) dst[e] = pad;
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // y of stage n: per step, q_t by the step's D / 4 lanes, then the row
+  // groups' partials in order plus v_t q_t
+  auto combine = [&](int n) {
+    const T* slot = ring + (n % RING) * SLOT;
+    const float* yp = ypart + (n & 1) * ST * RG * D;
+    const int t0 = n * ST;
+#pragma unroll
+    for (int i = 0; i < (GROUPS + THREADS - 1) / THREADS; ++i) {
+      const int g = tid + i * THREADS;
+      if (GROUPS % THREADS == 0 || g < GROUPS) {   // whole warps
+        const int m = g / LPS;
+        float rr[4], kk[4], vv[4], acc[4], x[4];
+        load_n<T, 4>(slot + (0 * ST + m) * D + qc, rr);
+        load_n<T, 4>(slot + (1 * ST + m) * D + qc, kk);
+        load_n<T, 4>(slot + (2 * ST + m) * D + qc, vv);
+        float q = rr[0] * (uq[0] * kk[0]);
+#pragma unroll
+        for (int e = 1; e < 4; ++e) q = fmaf(rr[e], uq[e] * kk[e], q);
+#pragma unroll
+        for (int o = LPS / 2; o >= 1; o >>= 1)
+          q += __shfl_xor_sync(0xffffffffu, q, o);
+        load_n<float, 4>(yp + (m * RG) * D + qc, acc);
+#pragma unroll
+        for (int g2 = 1; g2 < RG; ++g2) {
+          load_n<float, 4>(yp + (m * RG + g2) * D + qc, x);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[e] += x[e];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] = fmaf(vv[e], q, acc[e]);
+        if (t0 + m < S) store4<T>(y + at(t0 + m) + qc, acc);
+      }
+    }
+  };
+
+  if constexpr (FWD_ASYNC)
+    for (int n = 0; n < RING - 2; ++n) stage_in(n);
+  for (int n = 0; n < NS; ++n) {
+    if constexpr (!FWD_ASYNC) stage_in(n);
+    cp_async_wait<FWD_ASYNC ? RING - 3 : 0>();
+    // stage n has landed; stage n - 2's slot and partials are free again
+    __syncthreads();
+    if constexpr (FWD_ASYNC) stage_in(n + RING - 2);
+    const int t0 = n * ST;
+    if (t0 % CHUNK == 0) {
+      float* c = ckpt + ((size_t)bh * NC + t0 / CHUNK) * D * D;
+#pragma unroll
+      for (int p = 0; p < TR; ++p)
+        st_f<TC>(c + (size_t)(row0 + p) * D + col0, st[p]);
+    }
+    const T* slot = ring + (n % RING) * SLOT;
+    float* yp = ypart + (n & 1) * ST * RG * D + rg * D + col0;
+#pragma unroll
+    for (int m = 0; m < ST; ++m) {
+      float rr[TR], kk[TR], ww[TR], vv[TC], part[TC];
+      load_n<T, TR>(slot + (0 * ST + m) * D + row0, rr);
+      load_n<T, TR>(slot + (1 * ST + m) * D + row0, kk);
+      load_n<T, TC>(slot + (2 * ST + m) * D + col0, vv);
+      load_n<T, TR>(slot + (3 * ST + m) * D + row0, ww);
+#pragma unroll
+      for (int e = 0; e < TC; ++e) part[e] = rr[0] * st[0][e];
+#pragma unroll
+      for (int p = 1; p < TR; ++p)
+#pragma unroll
+        for (int e = 0; e < TC; ++e) part[e] = fmaf(rr[p], st[p][e], part[e]);
+#pragma unroll
+      for (int p = 0; p < TR; ++p)
+#pragma unroll
+        for (int e = 0; e < TC; ++e)
+          st[p][e] = fmaf(ww[p], st[p][e], kk[p] * vv[e]);
+      st_f<TC>(yp + m * RG * D, part);
+    }
+    if (n > 0) combine(n - 1);
+  }
+  __syncthreads();
+  combine(NS - 1);
+#pragma unroll
+  for (int p = 0; p < TR; ++p)
+    st_f<TC>(sT + sbase + (size_t)(row0 + p) * D + col0, st[p]);
 }
 
 template <typename T, int D>
@@ -675,7 +870,12 @@ template <typename T, int D>
 cudaError_t fwd(const void* r, const void* k, const void* v, const void* w,
                 const float* u, const float* s0, void* y, float* sT,
                 float* ckpt, int B, int S, int H, cudaStream_t stream) {
-  wkv6_fwd_kernel<T, D><<<B * H, D, 0, stream>>>(
+  auto kern = wkv6_fwd_kernel<T, D>;
+  const size_t smem = fwd_smem_bytes<T, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<B * H, fwd_threads(D), smem, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w), u, s0,
       static_cast<T*>(y), sT, ckpt, S, H);
@@ -726,8 +926,8 @@ bool shape_ok(int B, int S, int H, int D) {
 
 // dtype codes: 0 = float32, 1 = bfloat16 (r, k, v, w, y and their
 // gradients share it).  Each returns the cudaError_t of the launch
-// (cudaGetLastError right after it, or the error of setting the
-// backward's shared-memory size); 0 means it was accepted.  D other than
+// (cudaGetLastError right after it, or the error of setting the kernel's
+// shared-memory size); 0 means it was accepted.  D other than
 // 32 or 64 is refused with cudaErrorInvalidValue.  Tensors are aligned to
 // 16 bytes.
 extern "C" int wkv6_forward_launch(const void* r, const void* k,

@@ -749,6 +749,77 @@ def rwkv6_wkv_backward_plain(r, k, v, w, u, ckpt, dy, dsT):
             du, g)
 
 
+WKV_FWD_TR = 8             # state rows a thread of the forward kernel owns
+WKV_FWD_TC = 4             # state columns it owns
+WKV_FWD_STAGE = 16         # steps a stage of the forward's input ring holds
+
+
+def _halving_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` (a power of two long) by halves: entry i with
+    i + n / 2, then the same on the result; a butterfly's order over lane
+    bits from the highest down."""
+    while x.shape[dim] > 1:
+        lo, hi = x.chunk(2, dim)
+        x = lo + hi
+    return x.squeeze(dim)
+
+
+def rwkv6_wkv_forward_blocked_plain(r, k, v, w, u, state, *,
+                                    tile: Tuple[int, int] = (WKV_FWD_TR,
+                                                             WKV_FWD_TC),
+                                    stage: int = WKV_FWD_STAGE
+                                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """:func:`rwkv6_wkv_forward_plain` in the CUDA forward's own schedule
+    (``csrc/rwkv6_wkv.cu``), for the tests and the on-card checks.
+
+    The D x D state in ``tile`` = (rows, columns) tiles, one a thread (a
+    whole number of warps).  Per step, y's partial of each row group sums
+    over the tile's rows in order; once per stage of ``stage`` steps, the
+    row groups' partials are summed in order 0, 1, ..; q_t = r_t . (u k_t)
+    once per step, 4 consecutive j a lane, then over the D / 4 lanes by
+    halves (a butterfly); y_t = that sum + v_t q_t.  The states follow
+    the plain forward's arithmetic, so sT and the checkpoints equal its
+    own to the bit; only y's order of summation differs.  Same arguments
+    and returns as the plain forward."""
+    b, s, h, d = r.shape
+    tr, tc = tile
+    if d % tr or d % tc or (d // tr) * (d // tc) % 32:
+        raise ValueError(f"tile {tile} does not fill whole warps at head "
+                         f"size {d}")
+    if WKV_CHUNK % stage:
+        raise ValueError(f"stage={stage} does not divide the checkpoint "
+                         f"interval {WKV_CHUNK}")
+    groups = d // tr
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = _per_batch_u(u, b)
+    st = state.float()
+    ys, ckpts = [], []
+    for t0 in range(0, s, stage):
+        steps = range(t0, min(t0 + stage, s))
+        parts = []                                 # [B, H, groups, D] a step
+        for t in steps:
+            if t % WKV_CHUNK == 0:
+                ckpts.append(st)
+            prod = (rf[:, t, :, :, None] * st).reshape(b, h, groups, tr, d)
+            acc = prod[..., 0, :]
+            for p in range(1, tr):
+                acc = acc + prod[..., p, :]
+            parts.append(acc)
+            st = wf[:, t, :, :, None] * st + \
+                kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        for t, part in zip(steps, parts):
+            acc = part[:, :, 0]
+            for g in range(1, groups):
+                acc = acc + part[:, :, g]
+            ruk = (rf[:, t] * (uf * kf[:, t])).reshape(b, h, d // 4, 4)
+            q = ruk[..., 0]
+            for e in range(1, 4):
+                q = q + ruk[..., e]
+            ys.append(acc + vf[:, t] * _halving_sum(q, 2)[..., None])
+    return torch.stack(ys, 1).to(r.dtype), st, torch.stack(ckpts, 2)
+
+
 WKV_BWD_ROWS = 16          # state rows per CTA of the backward kernel
 WKV_BWD_SUB = 8            # steps between its on-chip sub-checkpoints
 

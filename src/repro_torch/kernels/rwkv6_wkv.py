@@ -3,18 +3,21 @@ hand-written Hopper kernels in ``csrc/rwkv6_wkv.cu``.
 
 The kernels replace the Pallas TPU kernel
 ``repro/kernels/rwkv6_wkv.py::rwkv6_wkv`` (forward only; the backward is
-new); the source's header says what bounds them (the forward's chain of
-steps, the backward's fp32 operations) and what the designs do about that:
+new); the source's header says what bounds them (both are bound by
+issuing their fp32 operations) and what the designs do about that: the
+forward spreads a (b, h)'s state over 8 x 4 tiles of one CTA, sums y's
+row-group partials in a fixed order once per stage, computes the
+bonus term once per step and stages its inputs by asynchronous copies;
 the backward splits a (b, h)'s state rows over a thread-block cluster and
 recomputes its states on chip from the forward's checkpoints, with no
 scratch in device memory (``kernels/ref.py::
-rwkv6_wkv_backward_blocked_plain`` runs its schedule in plain PyTorch).
-Each wrapper checks device, types, shapes and contiguity (the backward
-also 16-byte alignment, for its vector loads), allocates its outputs,
-launches on PyTorch's current stream and raises if the launch was
-refused.  They take CUDA tensors only: ``kernels/ops.py::rwkv6_wkv``
-routes CPU tensors to the plain versions in ``kernels/ref.py``, through
-the same autograd Functions.
+rwkv6_wkv_forward_blocked_plain`` and ``rwkv6_wkv_backward_blocked_plain``
+run their schedules in plain PyTorch).  Each wrapper checks device,
+types, shapes, contiguity and 16-byte alignment (for the kernels' vector
+loads and copies), allocates its outputs, launches on PyTorch's current
+stream and raises if the launch was refused.  They take CUDA tensors
+only: ``kernels/ops.py::rwkv6_wkv`` routes CPU tensors to the plain
+versions in ``kernels/ref.py``, through the same autograd Functions.
 
 ``rwkv6_wkv_forward.launches`` and ``rwkv6_wkv_backward.launches`` count
 accepted launches (and nothing else), so a run can show that its layers
@@ -91,11 +94,17 @@ def rwkv6_wkv_forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """r/k/v/w [B, S, H, D] fp32/bf16 (one type); u fp32 [B, H, D]; s0
-    fp32 [B, H, D, D].  Returns (y [B, S, H, D] in r's type, sT fp32
-    [B, H, D, D], the checkpoints fp32 [B, H, ceil(S / 64), D, D])."""
+    fp32 [B, H, D, D].  One launch of a CTA of D^2 / 32 threads per
+    (b, h), its inputs staged by 16-byte asynchronous copies.  Returns
+    (y [B, S, H, D] in r's type, sT fp32 [B, H, D, D], the checkpoints
+    fp32 [B, H, ceil(S / 64), D, D]: the state before every 64th step,
+    bit for bit the first port's, as is sT)."""
     b, s, h, d = _check((r, k, v, w), u, (s0,), "rwkv6_wkv_forward")
     if s0.shape != (b, h, d, d):
         raise ValueError(f"s0 must be {(b, h, d, d)}, got {tuple(s0.shape)}")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w, u, s0)):
+        raise ValueError("rwkv6_wkv_forward kernel takes tensors aligned "
+                         "to 16 bytes")
     nc = -(-s // WKV_CHUNK)
     y = torch.empty_like(r)
     sT = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
