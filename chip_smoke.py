@@ -210,6 +210,21 @@ CODEC_PLANS = ("local@2:qint8/global@8:topk:0.05",
 # states), and y with r_{t+1} for r_t at the first step of every stage (a
 # fault in the WKV forward's staging).
 KERN_REL_TOL = 1e-5
+# phase 10, the WKV forward against kernels/ref.py's emulation of its
+# arithmetic (every fmaf rounded once): the states and checkpoints bit for
+# bit, y per element within this many ulps of its type (the emulation
+# should give y's bits too; an ulp leaves room for the one place where
+# the card and the emulation might part)
+WKV_FWD_EMU_ULPS = 1
+# phase 10 times the WKV forward after a device sleep of this many cycles
+# (~0.5 ms), not time_ms's ~50 us: on the first reading after a fresh
+# flush buffer the host takes 0.15-0.23 ms from the flush's launch to the
+# forward's return (0.06-0.15 on the others), as long as the flush and
+# the short sleep, while the kernel alone never runs long
+# (scripts/wkv_variants.py's timing study); at the short sleep the first
+# of phase 10's readings read 0.16-0.27 ms against ~0.11 in 7 of 9 runs
+# on an H100
+WKV_FWD_SLEEP_CYCLES = 1_000_000
 # phases 12 and 13: full-width LM training through the Hier-AVG trainer
 LM_MARKOV_VOCAB = 512       # the Markov chain's token ids (a 65,536^2
                             # chain would take 17 GB)
@@ -277,17 +292,18 @@ def decode_case(torch, *, b, hkv, g, d, page, maxp, lengths, dtype, seed,
     return q, kp, vp, tables, lens
 
 
-def time_ms(torch, fn, flush, reps: int) -> float:
+def time_ms(torch, fn, flush, reps: int, sleep: int = 100_000) -> float:
     """Mean device time of fn over reps launches, L2 flushed before each
     (the serving path finds each layer's pool cold).  The card sleeps
-    ~50 us after the flush, so that the host has queued fn's launches
-    before the start event is reached and the time counts no host gap."""
+    ``sleep`` cycles (~50 us by default) after the flush, so that the host
+    has queued fn's launches before the start event is reached and the
+    time counts no host gap."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(100_000)
+        torch.cuda._sleep(sleep)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -808,6 +824,20 @@ def topk_groups(sizes, rows):
     from repro_torch.comm.sparse import TopKReducer, delta_groups
     return delta_groups([4 * rows * n for n in sizes],
                         TopKReducer.group_bytes)
+
+
+def ulps_apart(torch, a, b) -> int:
+    """The largest distance between two fp32 or bf16 tensors of one type,
+    element by element, in units in the last place of the type (0: the
+    same values; +0 and -0 are 0 apart)."""
+    view, mask = ((torch.int16, 0x7FFF) if a.element_size() == 2
+                  else (torch.int32, 0x7FFFFFFF))
+
+    def ordered(x):
+        i = x.contiguous().view(view).long()
+        return torch.where(i < 0, -(i & mask), i)
+
+    return int((ordered(a) - ordered(b)).abs().max().item())
 
 
 def same_bits(torch, a, b) -> bool:
@@ -2045,9 +2075,9 @@ def phase_wkv(torch):
         gp = kref.rwkv6_wkv_backward_plain(r, k, v, w, u, cp, dy, dsT)
         # the kernels' schedules, emulated in plain PyTorch: the forward's
         # 8 x 4 tiles, y's row-group partials summed in order and q_t once
-        # per step; the backward's row blocks, sub-checkpoints and dv over
-        # the blocks in order
-        ye = kref.rwkv6_wkv_forward_blocked_plain(r, k, v, w, u, s0)[0]
+        # per step, each fmaf rounded once; the backward's row blocks,
+        # sub-checkpoints and dv over the blocks in order
+        fe = kref.rwkv6_wkv_forward_blocked_plain(r, k, v, w, u, s0)
         ge = kref.rwkv6_wkv_backward_blocked_plain(r, k, v, w, u, cp, dy,
                                                    dsT)
         torch.cuda.synchronize()
@@ -2063,12 +2093,17 @@ def phase_wkv(torch):
                      a, e)[1] for name, a, e in zip(names[2:], gk, ge)]
         blocked.append(f"{label}: " + " ".join(
             f"{n}={m:.2e}" for n, m in zip(names[2:], meas)))
-        _, meas = hold(torch, f"wkv {label} y against the emulation", yk,
-                       ye)
-        fblocked.append(f"{label}: y={meas:.2e}")
+        if not (same_bits(torch, sTk, fe[1]) and same_bits(torch, ck, fe[2])):
+            fail(f"wkv {label}: the forward's final state or a checkpoint "
+                 f"differs from the emulation's")
+        ulps = ulps_apart(torch, yk, fe[0])
+        if ulps > WKV_FWD_EMU_ULPS:
+            fail(f"wkv {label}: y {ulps} ulps from the emulation's (limit "
+                 f"{WKV_FWD_EMU_ULPS})")
+        fblocked.append(f"{label}: y {ulps} ulps")
         if i == 0:
             train = (inp, ck, yp, gp)
-        del inp, yk, sTk, ck, gk, yp, sTp, cp, gp, ge, ye
+        del inp, yk, sTk, ck, gk, yp, sTp, cp, gp, ge, fe
     (r, k, v, w, u, s0, dy, dsT), ck, yp, gp = train
     # controls at the training shape: the bonus u dropped from y, and
     # from dk (a backward that forgets u's term); y with r_{t+1} at every
@@ -2095,15 +2130,14 @@ def phase_wkv(torch):
             (yk, sTk, ck1, *gk), (yk2, sTk2, ck2, *gk2))):
         fail("wkv: a rerun gave other bits")
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    # each kernel's time is the median of 10 single-call readings: a
-    # reading that a host stall longer than time_ms's sleep let into the
-    # window (0.69 ms against 0.11 on an H100) moves a mean, not a median
+    # each kernel's time: the mean of 10 single-call readings (the median
+    # printed beside it); the forward's after a longer sleep
     f_reps = [time_ms(torch, lambda: rwkv6_wkv_forward(r, k, v, w, u, s0),
-                      flush, 1) for _ in range(10)]
-    f_ms = statistics.median(f_reps)
+                      flush, 1, WKV_FWD_SLEEP_CYCLES) for _ in range(10)]
+    f_ms = statistics.fmean(f_reps)
     b_reps = [time_ms(torch, lambda: rwkv6_wkv_backward(
         r, k, v, w, u, ck1, dy, dsT), flush, 1) for _ in range(10)]
-    b_ms = statistics.median(b_reps)
+    b_ms = statistics.fmean(b_reps)
     f_plain = time_ms(torch, lambda: kref.rwkv6_wkv_forward_plain(
         r, k, v, w, u, s0), flush, 2)
     b_plain = time_ms(torch, lambda: kref.rwkv6_wkv_backward_plain(
@@ -2114,7 +2148,8 @@ def phase_wkv(torch):
     print(f"phase 10 wkv kernels vs plain (fp32 limit {KERN_REL_TOL} of "
           f"max|plain|, bf16 {BF16_ULPS} ulps + that; measures per "
           f"output): " + " | ".join(parts) + "; forward vs "
-          f"rwkv6_wkv_forward_blocked_plain (same limits): "
+          f"rwkv6_wkv_forward_blocked_plain (sT and checkpoints "
+          f"bit-identical, y within {WKV_FWD_EMU_ULPS} ulp): "
           + " | ".join(fblocked) + "; backward vs "
           f"rwkv6_wkv_backward_blocked_plain (same limits): "
           + " | ".join(blocked) + f"; controls: y without u {ctl_y:.3e}, "
@@ -2122,11 +2157,14 @@ def phase_wkv(torch):
           f"{ctl_dk:.3e}, dr with S_(t+1) {ctl_dr:.3e}, dw with S_(t+1) "
           f"{ctl_dw:.3e} (fail, as they must); rerun bit-identical; "
           f"training shape (B8 S512 H32 D64 fp32, L2 flushed): "
-          f"fwd_ms={f_ms:.4f} (median of {fmt(f_reps)}) "
+          f"fwd_ms={f_ms:.4f} (sleep {WKV_FWD_SLEEP_CYCLES} cycles; mean; "
+          f"median {statistics.median(f_reps):.4f}; readings "
+          f"{fmt(f_reps)}) "
           f"plain_ms={f_plain:.4f} "
           f"bound_ms={fb:.4f} ({fby}, {fbytes} B; the port's forward also "
           f"writes {ck_bytes} B of checkpoints); bwd_ms={b_ms:.4f} "
-          f"(median of {fmt(b_reps)}) plain_ms={b_plain:.4f} "
+          f"(mean; median {statistics.median(b_reps):.4f}; readings "
+          f"{fmt(b_reps)}) plain_ms={b_plain:.4f} "
           f"bound_ms={bb_:.4f} ({bby}, {bbytes} B); backward beyond "
           f"inputs, outputs and checkpoints: scratch {scratch} B, input "
           f"re-reads <= {rereads} B; library: none (no single PyTorch "

@@ -37,7 +37,7 @@
 //     idle: 132 CTAs take 0.074 ms, 264 0.111); the thread takes 184
 //     registers (fp32, D 64; no spills), __launch_bounds__(128, 2).  4 x 4
 //     tiles (8 warps a CTA, 16 an SM) took 0.152-0.155 ms, 4 x 8 tiles
-//     0.209-0.211 (their 16 row groups' partials leave room for one CTA an
+//     0.204-0.209 (their 16 row groups' partials leave room for one CTA an
 //     SM; PERF.md): a bigger tile spends fewer loads, stores and sums per
 //     entry.
 //   * Rows couple only through y's sum over j.  A thread sums its tile's
@@ -72,11 +72,14 @@
 //       q_t    = butterfly (lane xor D/8 first) over the D / 4 lanes of
 //                fmaf chains r_j (u_j k_j) over j = 4l .. 4l + 3
 //
-//     (kernels/ref.py::rwkv6_wkv_forward_blocked_plain runs this schedule.)
+//     kernels/ref.py::rwkv6_wkv_forward_blocked_plain runs this schedule
+//     and its arithmetic, each fmaf rounded once: the card's states and
+//     checkpoints equal it to the bit (chip_smoke.py phase 10).
 //
 //   Shared memory per CTA, D 64 fp32 (bf16; D 32 fp32): the ring 48 KB
 //   (24 KB; 24 KB), the row groups' y partials 2 x 16 x 8 x 64 x 4 B =
-//   64 KB (64 KB; 16 KB): 114,688 B (90,112 B; 40,960 B), dynamic.  The
+//   64 KB (64 KB; 16 KB): 114,688 B (90,112 B; 40,960 B), dynamic (its
+//   limit set once per device by the launcher, not per launch).  The
 //   state at the start of every CHUNK = 64 steps is written as a
 //   checkpoint [B*H, NC, D, D] for the backward (33.5 MB a layer at the
 //   training shape), the final state as sT.  Inputs are read once.
@@ -178,6 +181,8 @@
 // Built with nvcc into a plain-C shared library and loaded with ctypes
 // (repro_torch/kernels/_build.py, repro_torch/kernels/rwkv6_wkv.py).
 
+#include <atomic>
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -191,8 +196,6 @@ constexpr int FWD_TR = 8;         // state rows a thread owns, forward
 constexpr int FWD_TC = 4;         // state columns a thread owns
 constexpr int FWD_STAGE = 16;     // steps a stage of the forward's ring holds
 constexpr int FWD_RING = 3;       // stages in the ring
-constexpr int FWD_MIN_CTAS = 2;   // CTAs per SM its registers must allow
-constexpr bool FWD_ASYNC = true;  // the next stage's copies fly during this one
 static_assert(CHUNK % FWD_STAGE == 0, "checkpoints fall on stage starts");
 static_assert(FWD_RING >= 3, "a stage is combined while the next one runs");
 constexpr int BWD_ROWS = 16;      // state rows per CTA of the backward
@@ -360,7 +363,7 @@ constexpr size_t fwd_smem_bytes() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(fwd_threads(D), FWD_MIN_CTAS)
+__global__ void __launch_bounds__(fwd_threads(D), 2)
 wkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ w,
                 const float* __restrict__ u, const float* __restrict__ s0,
@@ -464,14 +467,12 @@ wkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
     }
   };
 
-  if constexpr (FWD_ASYNC)
-    for (int n = 0; n < RING - 2; ++n) stage_in(n);
+  for (int n = 0; n < RING - 2; ++n) stage_in(n);
   for (int n = 0; n < NS; ++n) {
-    if constexpr (!FWD_ASYNC) stage_in(n);
-    cp_async_wait<FWD_ASYNC ? RING - 3 : 0>();
+    cp_async_wait<RING - 3>();
     // stage n has landed; stage n - 2's slot and partials are free again
     __syncthreads();
-    if constexpr (FWD_ASYNC) stage_in(n + RING - 2);
+    stage_in(n + RING - 2);
     const int t0 = n * ST;
     if (t0 % CHUNK == 0) {
       float* c = ckpt + ((size_t)bh * NC + t0 / CHUNK) * D * D;
@@ -869,12 +870,20 @@ wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t fwd(const void* r, const void* k, const void* v, const void* w,
                 const float* u, const float* s0, void* y, float* sT,
-                float* ckpt, int B, int S, int H, cudaStream_t stream) {
+                float* ckpt, int B, int S, int H, int device,
+                cudaStream_t stream) {
   auto kern = wkv6_fwd_kernel<T, D>;
   const size_t smem = fwd_smem_bytes<T, D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  // the shared-memory size is set once per device (devices 0-63), not on
+  // every launch: the call is host time in front of each launch
+  static std::atomic<unsigned long long> set_on{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (!(set_on.load() & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    set_on |= bit;
+  }
   kern<<<B * H, fwd_threads(D), smem, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w), u, s0,
@@ -947,12 +956,14 @@ extern "C" int wkv6_forward_launch(const void* r, const void* k,
   float* sTf = static_cast<float*>(sT);
   float* cf = static_cast<float*>(ckpt);
   if (dtype == 0)
-    err = D == 64 ? fwd<float, 64>(r, k, v, w, uf, s0f, y, sTf, cf, B, S, H, s)
-                  : fwd<float, 32>(r, k, v, w, uf, s0f, y, sTf, cf, B, S, H, s);
-  else
     err = D == 64
-              ? fwd<__nv_bfloat16, 64>(r, k, v, w, uf, s0f, y, sTf, cf, B, S, H, s)
-              : fwd<__nv_bfloat16, 32>(r, k, v, w, uf, s0f, y, sTf, cf, B, S, H, s);
+              ? fwd<float, 64>(r, k, v, w, uf, s0f, y, sTf, cf, B, S, H, device, s)
+              : fwd<float, 32>(r, k, v, w, uf, s0f, y, sTf, cf, B, S, H, device, s);
+  else
+    err = D == 64 ? fwd<__nv_bfloat16, 64>(r, k, v, w, uf, s0f, y, sTf, cf, B,
+                                           S, H, device, s)
+                  : fwd<__nv_bfloat16, 32>(r, k, v, w, uf, s0f, y, sTf, cf, B,
+                                           S, H, device, s);
   return (int)err;
 }
 

@@ -764,6 +764,24 @@ def _halving_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.squeeze(dim)
 
 
+def fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c on fp32 tensors with one rounding, as CUDA's ``fmaf``.
+
+    The product is exact in fp64; the fp64 sum is made round-to-odd (its
+    error, by TwoSum, nudges an inexact even result one ulp towards the
+    exact value), and a round-to-odd fp64 value rounds to fp32 as the exact
+    value does, so the result is the correctly rounded fma."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bp = s - p
+    err = (p - (s - bp)) + (cd - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def rwkv6_wkv_forward_blocked_plain(r, k, v, w, u, state, *,
                                     tile: Tuple[int, int] = (WKV_FWD_TR,
                                                              WKV_FWD_TC),
@@ -771,17 +789,21 @@ def rwkv6_wkv_forward_blocked_plain(r, k, v, w, u, state, *,
                                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                                torch.Tensor]:
     """:func:`rwkv6_wkv_forward_plain` in the CUDA forward's own schedule
-    (``csrc/rwkv6_wkv.cu``), for the tests and the on-card checks.
+    and arithmetic (``csrc/rwkv6_wkv.cu``), for the tests and the on-card
+    checks: every fp32 operation of the kernel, each ``fmaf`` rounded once
+    (:func:`fmaf`), so that the kernel's outputs should equal it to the
+    bit.
 
     The D x D state in ``tile`` = (rows, columns) tiles, one a thread (a
-    whole number of warps).  Per step, y's partial of each row group sums
-    over the tile's rows in order; once per stage of ``stage`` steps, the
-    row groups' partials are summed in order 0, 1, ..; q_t = r_t . (u k_t)
-    once per step, 4 consecutive j a lane, then over the D / 4 lanes by
-    halves (a butterfly); y_t = that sum + v_t q_t.  The states follow
-    the plain forward's arithmetic, so sT and the checkpoints equal its
-    own to the bit; only y's order of summation differs.  Same arguments
-    and returns as the plain forward."""
+    whole number of warps), each entry updated as fmaf(w_j, S, k_j v_i).
+    Per step, y's partial of each row group is an fmaf chain over the
+    tile's rows in order (the first row a product); once per stage of
+    ``stage`` steps, the row groups' partials are summed in order 0, 1,
+    ..; q_t = r_t . (u k_t) once per step, an fmaf chain over 4
+    consecutive j a lane, then summed over the D / 4 lanes by halves (a
+    butterfly); y_t = fmaf(v_t, q_t, that sum).  The states differ from
+    the plain forward's (which rounds w S and adds k v) by rounding only.
+    Same arguments and returns as the plain forward."""
     b, s, h, d = r.shape
     tr, tc = tile
     if d % tr or d % tc or (d // tr) * (d // tc) % 32:
@@ -801,22 +823,25 @@ def rwkv6_wkv_forward_blocked_plain(r, k, v, w, u, state, *,
         for t in steps:
             if t % WKV_CHUNK == 0:
                 ckpts.append(st)
-            prod = (rf[:, t, :, :, None] * st).reshape(b, h, groups, tr, d)
-            acc = prod[..., 0, :]
+            rows = st.reshape(b, h, groups, tr, d)
+            rt = rf[:, t].reshape(b, h, groups, tr, 1)
+            acc = rt[..., 0, :] * rows[..., 0, :]
             for p in range(1, tr):
-                acc = acc + prod[..., p, :]
+                acc = fmaf(rt[..., p, :], rows[..., p, :], acc)
             parts.append(acc)
-            st = wf[:, t, :, :, None] * st + \
-                kf[:, t, :, :, None] * vf[:, t, :, None, :]
+            st = fmaf(wf[:, t, :, :, None], st,
+                      kf[:, t, :, :, None] * vf[:, t, :, None, :])
         for t, part in zip(steps, parts):
             acc = part[:, :, 0]
             for g in range(1, groups):
                 acc = acc + part[:, :, g]
-            ruk = (rf[:, t] * (uf * kf[:, t])).reshape(b, h, d // 4, 4)
-            q = ruk[..., 0]
+            rl = rf[:, t].reshape(b, h, d // 4, 4)
+            ukl = (uf * kf[:, t]).reshape(b, h, d // 4, 4)
+            q = rl[..., 0] * ukl[..., 0]
             for e in range(1, 4):
-                q = q + ruk[..., e]
-            ys.append(acc + vf[:, t] * _halving_sum(q, 2)[..., None])
+                q = fmaf(rl[..., e], ukl[..., e], q)
+            q = _halving_sum(q, 2)[..., None].expand(b, h, d)
+            ys.append(fmaf(vf[:, t], q, acc))
     return torch.stack(ys, 1).to(r.dtype), st, torch.stack(ckpts, 2)
 
 

@@ -1,30 +1,35 @@
 """The CUDA WKV6 forward's schedule, emulated on the CPU.
 
-``kernels/ref.py::rwkv6_wkv_forward_blocked_plain`` runs the schedule of
-``csrc/rwkv6_wkv.cu``'s forward kernel in plain PyTorch: the state in 8 x 4
-tiles, y's partials summed over each tile's rows and, once per stage, over
-the row groups in order, and the bonus term q_t = r_t . (u k_t) once per
-step.  chip_smoke.py holds the kernel's
-y against it on the card; here it is held against the reference's
-``rwkv6_wkv_ref`` under ``jax.jit``, against the Pallas kernel in
-interpret mode and against the plain forward.  Inputs are made with numpy
-and handed to both packages.
+``kernels/ref.py::rwkv6_wkv_forward_blocked_plain`` runs the schedule and
+the arithmetic of ``csrc/rwkv6_wkv.cu``'s forward kernel in plain PyTorch:
+the state in 8 x 4 tiles updated by fmaf, y's partials as fmaf chains
+over each tile's rows and, once per stage, summed over the row groups in
+order, and the bonus term q_t = r_t . (u k_t) once per step, each fmaf
+rounded once (``kernels/ref.py::fmaf``, held here against exact rational
+arithmetic).  chip_smoke.py holds the kernel's outputs against it on the
+card (states bit for bit, y within one ulp); here it is held against the
+reference's ``rwkv6_wkv_ref`` under ``jax.jit``, against the Pallas
+kernel in interpret mode and against the plain forward.  Inputs are made
+with numpy and handed to both packages.
 
 Tolerances: against the reference and the Pallas kernel, fp32, y and the
 final state within FWD_REL = 1e-5 of the reference tensor's largest
 magnitude (sums in another order; fp32 rounding over a few hundred steps
-is about 1e-6 of it).  Against the plain forward, the states and
-checkpoints bit for bit (the emulation keeps the plain arithmetic for
-them) and y under chip_smoke.py phase 10's limit: fp32 within
+is about 1e-6 of it).  The states and checkpoints bit for bit against a
+step-by-step fmaf recurrence, and within FWD_REL of the plain forward's
+(which rounds w S before adding k v); y under chip_smoke.py phase 10's
+limit of the plain forward's: fp32 within
 KERN_REL_TOL = 1e-5 of max|plain|; bf16 per element within BF16_ULPS = 2
 ulps of max(|emulation|, |plain|) plus KERN_REL_TOL * max|plain|.  A
 control, y with r_{t+1} for r_t at the first step of every stage (a fault
 in the kernel's staging), must fail that limit.
 """
 import inspect
+import math
 import pathlib
 import re
 import sys
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -39,7 +44,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 
 # the staging control, as chip_smoke.py phase 10 computes it
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-from chip_smoke import staging_fault_control  # noqa: E402
+from chip_smoke import staging_fault_control, ulps_apart  # noqa: E402
 
 FWD_REL = 1e-5
 KERN_REL_TOL = 1e-5
@@ -85,6 +90,29 @@ def _within(out, ref):
     ulp = _bf16_ulp(torch.maximum(o.abs(), p.abs()))
     share = (diff / (BF16_ULPS * ulp + KERN_REL_TOL * scale)).max().item()
     return share <= 1.0, share
+
+
+def _fma_states(r, k, v, w, u, s0):
+    """(sT, checkpoints) of the kernel's state arithmetic, step by step:
+    S = fmaf(w_j, S, k_j v_i), with no tiles or stages."""
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    st, ckpts = s0.float(), []
+    for t in range(r.shape[1]):
+        if t % tref.WKV_CHUNK == 0:
+            ckpts.append(st)
+        st = tref.fmaf(wf[:, t, :, :, None], st,
+                       kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    return st, torch.stack(ckpts, 2)
+
+
+def _states_hold(sT, ckpt, args, want_plain):
+    """sT and the checkpoints: the fmaf recurrence's to the bit, the plain
+    forward's within FWD_REL."""
+    sT_f, ckpt_f = _fma_states(*args)
+    assert torch.equal(sT, sT_f) and torch.equal(ckpt, ckpt_f)
+    _, sT_p, ckpt_p = want_plain
+    _close_rel(sT, sT_p, FWD_REL, "sT against plain")
+    _close_rel(ckpt, ckpt_p, FWD_REL, "checkpoints against plain")
 
 
 def _shape(d):
@@ -134,12 +162,13 @@ def test_blocked_forward_matches_pallas_interpret(d, s, w_lo):
 @pytest.mark.parametrize("b,s,h,d", [(2, 130, 2, 32), (1, 192, 2, 64),
                                      (1, 77, 3, 64)])
 def test_blocked_forward_states_equal_plain(b, s, h, d, dtype):
-    """The states and checkpoints are the plain forward's to the bit; y
-    holds phase 10's limit."""
+    """The states and checkpoints are the fmaf recurrence's to the bit
+    and the plain forward's within FWD_REL; y holds phase 10's limit."""
     args = _args(_inputs(b, s, h, d, seed=7 + s), dtype)
     y, sT, ckpt = tref.rwkv6_wkv_forward_blocked_plain(*args)
-    y_p, sT_p, ckpt_p = tref.rwkv6_wkv_forward_plain(*args)
-    assert torch.equal(sT, sT_p) and torch.equal(ckpt, ckpt_p)
+    plain = tref.rwkv6_wkv_forward_plain(*args)
+    _states_hold(sT, ckpt, args, plain)
+    y_p = plain[0]
     assert y.dtype == y_p.dtype == dtype and y.shape == y_p.shape
     ok, measure = _within(y, y_p)
     assert ok, f"y: {measure:.3e} of the limit"
@@ -155,9 +184,9 @@ def test_other_tiles_and_stages_give_the_same_forward(tile, stage):
         args = _args(_inputs(1, 150, 2, d, seed=3 + d))
         y, sT, ckpt = tref.rwkv6_wkv_forward_blocked_plain(
             *args, tile=tile, stage=stage)
-        y_p, sT_p, ckpt_p = tref.rwkv6_wkv_forward_plain(*args)
-        assert torch.equal(sT, sT_p) and torch.equal(ckpt, ckpt_p)
-        ok, measure = _within(y, y_p)
+        plain = tref.rwkv6_wkv_forward_plain(*args)
+        _states_hold(sT, ckpt, args, plain)
+        ok, measure = _within(y, plain[0])
         assert ok, f"D {d}: y {measure:.3e} of the limit"
 
 
@@ -225,3 +254,69 @@ def test_staging_fault_control_fails_the_limit(dtype):
     rest = torch.ones(130, dtype=torch.bool)
     rest[starts] = False
     assert torch.equal(bad[:, rest], want[:, rest])
+
+
+def _round_f32(x: Fraction) -> np.float32:
+    """An exact rational rounded to fp32, to nearest, ties to even."""
+    if x == 0:
+        return np.float32(0.0)
+    mag = abs(x)
+    e = mag.numerator.bit_length() - mag.denominator.bit_length()
+    if Fraction(2) ** e > mag:
+        e -= 1
+    quantum = Fraction(2) ** (max(e, -126) - 23)   # the ulp at |x|
+    n = math.floor(mag / quantum)
+    rest = mag / quantum - n
+    if rest > Fraction(1, 2) or (rest == Fraction(1, 2) and n % 2):
+        n += 1
+    return np.float32(math.copysign(float(n * quantum), x))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fmaf_rounds_once(seed):
+    """fmaf(a, b, c) is a * b + c rounded once to fp32, to the bit: on
+    random triples over a wide range of exponents (subnormal results
+    included), and on triples whose fp64 sum lands on an fp32 tie that
+    the exact value is not on (where rounding twice goes wrong)."""
+    rng = np.random.default_rng(seed)
+    n = 2000
+    mant = lambda: rng.uniform(-2.0, 2.0, n)  # noqa: E731
+    a = (mant() * np.exp2(rng.integers(-70, 20, n))).astype(np.float32)
+    b = (mant() * np.exp2(rng.integers(-70, 20, n))).astype(np.float32)
+    c = (mant() * np.exp2(rng.integers(-150, 40, n))).astype(np.float32)
+    # (1 + 2^-12)^2 = 1 + 2^-11 + 2^-24 lies on a tie; c = +-2^-60
+    # breaks it, c = 0 leaves it to even
+    one = np.float32(1 + 2.0 ** -12)
+    tie = np.array([[one, one, 2.0 ** -60], [one, one, -(2.0 ** -60)],
+                    [one, one, 0.0], [-one, one, 2.0 ** -60],
+                    [-one, one, -(2.0 ** -60)]], np.float32)
+    a, b, c = (np.concatenate([x, tie[:, i]]) for i, x in enumerate((a, b, c)))
+    got = tref.fmaf(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y))
+                                + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    # rounding twice (fp64, then fp32) misses the broken ties
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert not np.array_equal(twice[-5:].view(np.int32),
+                              want[-5:].view(np.int32))
+
+
+def test_ulps_apart_counts_units_in_the_last_place():
+    """chip_smoke.py's measure of y against the emulation: 0 for the same
+    values (+0 and -0 too), 1 for neighbours in fp32 and in bf16, across
+    zero and among subnormals."""
+    x = torch.tensor([1.0, -1.0, 0.0, -0.0, 2.0 ** -149, 1e30, -3.25])
+    up = torch.nextafter(x, torch.full_like(x, float("inf")))
+    assert ulps_apart(torch, x, x.clone()) == 0
+    assert ulps_apart(torch, x, up) == 1
+    assert ulps_apart(torch, torch.tensor([0.0]), torch.tensor([-0.0])) == 0
+    tiny = torch.tensor([2.0 ** -149])
+    assert ulps_apart(torch, tiny, -tiny) == 2
+    b = torch.tensor([1.0, -2.5, 0.0], dtype=torch.bfloat16)
+    b_up = torch.tensor([1.0078125, -2.484375, 2.0 ** -133],
+                        dtype=torch.bfloat16)
+    assert ulps_apart(torch, b, b_up) == 1
+    assert ulps_apart(torch, b, -b) == 2 * int(
+        torch.tensor([-2.5], dtype=torch.bfloat16).view(torch.int16)
+        .item() & 0x7FFF)
