@@ -70,13 +70,24 @@ Phases (each prints one line of numbers; any failure exits non-zero):
   8. codecs   qint8_pack/unpack against their plain versions bit for bit
               (every leaf size of ResNet-18 at 16 rows, the bucket row
               [16, 2359296], blocks 255 and 128, bf16 input, ties, zeros,
-              signed zeros, subnormals, 1e30); batched_qr against its
-              plain version (raw Q within QR_TOL) and torch.linalg.qr
-              (projector, orthonormality) at [16,3,2], [16,512,2],
-              [16,1536,1..8], a zero column, and a panel of condition 1e6
-              on which a one-pass control must fail; times of one local
-              qint8 fire (10 + 10 launches) and one PowerSGD fire's 10 QRs
-              against the plain versions, torch.linalg.qr and the bounds
+              signed zeros, subnormals, 1e30), and the time of one local
+              qint8 fire (10 + 10 launches) against the plain versions and
+              the bound; batched_qr (phase_qr) against its plain version
+              (raw Q within QR_TOL), against batched_qr_blocked_plain (its
+              arithmetic emulated from the same plan, within QR_EMU_ULPS,
+              with a control on another schedule that must fail it) and
+              torch.linalg.qr (projector, orthonormality) at [16,3,2],
+              [16,512,2], [16,1536,1..8], [4,65536,8] (in device memory),
+              r 12 and 20 (shared memory) and the panels of one ResNet-18
+              and one rwkv6-1.6b per-leaf fire ([4,65536,2] on a cluster);
+              grouped calls against single calls bit for bit; a zero
+              column, and a panel of condition 1e6 on which a one-pass
+              control must fail; times, each launch after an L2 flush and
+              a LONG_SLEEP_CYCLES sleep, of (i) the Pipelined PowerSGD
+              fire's 10 calls of [16,1536,2], (ii) the same 10 buckets in
+              one call, (iii) the ResNet-18 and (iv) the rwkv6 per-leaf
+              fire in one call each, (v) [4,65536,2] alone, against
+              torch.linalg.qr and the bounds
   9. codecs train  as phase 7 under the default bucketing (4 MiB,
               pipelined, 10 uniform buckets per level), plan A
               local@2:qint8/global@8:topk:0.05 (120 pack, 120 unpack and
@@ -87,7 +98,10 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               PSGD_PARAM_TOL, a control QR without projection outside
               them; the panels' singular-value ratios, an fp64 QR on the
               same panels and an fp64-QR trajectory as witnesses of the
-              drift); round parts, peak memory and a profiled round each
+              drift) and plan C local@2/global@8:powersgd:2 per leaf (54
+              QR segments in 3 grouped calls; kernel vs plain and the
+              control as in plan B); round parts, peak memory and a
+              profiled round each
   10. wkv     the WKV6 forward and backward kernels against their plain
               versions (y, the final state, the checkpoints and all six
               gradients within KERN_REL_TOL) at the training shape (B 8,
@@ -178,6 +192,19 @@ QINT8_BLOCK = 256
 # control must fail on a panel of condition 1e6
 QR_TOL = 1e-5
 QR_ORTH_TOL = 1e-4
+# batched_qr against kernels/ref.py's emulation of its arithmetic
+# (batched_qr_blocked_plain, from the same plan): ulps per element.  Every
+# operation of the kernel is one fp32 operation rounded once (fmaf, an
+# addition, __fsub_rn, __fmul_rn, __frsqrt_rn) in an order the plan fixes,
+# and the emulation performs the same ones in the same order, so the limit
+# is 0; the same emulation on another schedule (a row a thread at a time)
+# must fail it
+QR_EMU_ULPS = 0
+# phase 8's per-leaf PowerSGD fires at rank 2, (batch, a, r) a compressible
+# leaf: ResNet-18 (16 learners; the HWIO convs give a = 3) and rwkv6-1.6b
+# at phase 12's size (4 learners, 4 layers)
+RESNET_QR_FIRE = ((16, 3, 2),) * 17 + ((16, 512, 2),)
+RWKV_QR_FIRE = ((4, 65536, 2), (4, 2048, 2)) + ((4, 4, 2),) * 22
 # phase 9, plan B (PowerSGD), kernel against plain QR after 2 rounds:
 # max|kernel - plain| / max|plain| of the losses and of all params at once
 # read 3.03e-3 and 2.23e-3 on an H100 (PERF.md, Findings), so the limits
@@ -195,7 +222,11 @@ QR_ORTH_TOL = 1e-4
 PSGD_LOSS_TOL = 1e-2
 PSGD_PARAM_TOL = 1e-2
 CODEC_PLANS = ("local@2:qint8/global@8:topk:0.05",
-               "local@2/global@8:powersgd:2:bucketed")
+               "local@2/global@8:powersgd:2:bucketed",
+               "local@2/global@8:powersgd:2")
+# compressible leaves of ResNet-18 at PowerSGD rank 2: plan C's QR
+# segments a fire (one grouped call)
+RESNET_PSGD_LEAVES = 18
 # phases 10 and 11, each WKV and attention kernel against its plain
 # version, fp32: max|kernel - plain| <= KERN_REL_TOL * max|plain| per
 # output.  Both sum in fp32 in other orders: a dot product of 64 (WKV) or
@@ -225,6 +256,15 @@ WKV_FWD_EMU_ULPS = 1
 # of phase 10's readings read 0.16-0.27 ms against ~0.11 in 7 of 9 runs
 # on an H100
 WKV_FWD_SLEEP_CYCLES = 1_000_000
+# every kernel's time prints its median beside its mean (fmt_ms) and the
+# readings whose host enqueue outlasted the device sleep; one whose mean
+# and median differ by more than TIMING_SPREAD of the median (calls read
+# within 5% of each other, PERF.md section 6) is read again after a sleep
+# ten times as long (10^5 -> 10^6 cycles, ~0.5 ms), and that second set
+# is its time.  QR's readings are a few microseconds each and are read at
+# LONG_SLEEP_CYCLES from the start
+TIMING_SPREAD = 0.05
+LONG_SLEEP_CYCLES = 1_000_000
 # phases 12 and 13: full-width LM training through the Hier-AVG trainer
 LM_MARKOV_VOCAB = 512       # the Markov chain's token ids (a 65,536^2
                             # chain would take 17 GB)
@@ -292,26 +332,72 @@ def decode_case(torch, *, b, hkv, g, d, page, maxp, lengths, dtype, seed,
     return q, kp, vp, tables, lens
 
 
-def time_ms(torch, fn, flush, reps: int, sleep: int = 100_000) -> float:
-    """Mean device time of fn over reps launches, L2 flushed before each
-    (the serving path finds each layer's pool cold).  The card sleeps
+class Ms(float):
+    """A kernel's time in ms: the mean of ``readings`` (each taken after a
+    device sleep of ``sleep`` cycles), with their ``median``; ``late``
+    counts the timed calls (``timed`` of them) whose host enqueue outlasted
+    the sleep (they count host time), and ``short`` holds the first set
+    where the readings were taken again after a sleep ten times as
+    long."""
+
+    def __new__(cls, readings, sleep, late=0, short=None, timed=None):
+        self = super().__new__(cls, statistics.fmean(readings))
+        self.readings = list(readings)
+        self.median = statistics.median(readings)
+        self.sleep = sleep
+        self.late = late
+        self.timed = len(self.readings) if timed is None else timed
+        self.short = short
+        return self
+
+    def spread(self) -> bool:
+        """Mean and median further apart than TIMING_SPREAD of the
+        median."""
+        return abs(self - self.median) > TIMING_SPREAD * self.median
+
+
+def fmt_ms(ms: Ms) -> str:
+    """A time with its median beside its mean, the readings the host was
+    late for, and the first set where they were taken again."""
+    text = f"{ms:.4f} (mean; median {ms.median:.4f}"
+    if ms.late:
+        text += f"; host late for {ms.late} of {ms.timed} calls"
+    if ms.short is not None:
+        text += (f"; read again at sleep {ms.sleep}: at {ms.short.sleep} "
+                 f"mean {ms.short:.4f} median {ms.short.median:.4f}, host "
+                 f"late for {ms.short.late} of {ms.short.timed} calls")
+    return text + ")"
+
+
+def time_ms(torch, fn, flush, reps: int, sleep: int = 100_000) -> Ms:
+    """Device time of fn over reps launches, L2 flushed before each (the
+    serving path finds each layer's pool cold).  The card sleeps
     ``sleep`` cycles (~50 us by default) after the flush, so that the host
     has queued fn's launches before the start event is reached and the
-    time counts no host gap."""
+    time counts no host gap; a reading whose enqueue outlasted the sleep
+    is counted as late.  Where the readings' mean and median differ by
+    more than TIMING_SPREAD of the median, they are taken again after a
+    sleep ten times as long (both sets are printed by fmt_ms)."""
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    out, late = [], 0
     for _ in range(reps):
         flush.zero_()
         torch.cuda._sleep(sleep)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         fn()
+        late += (time.perf_counter() - t0) * 1e3 > sleep / 2e6
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        out.append(start.elapsed_time(end))
+    ms = Ms(out, sleep, late)
+    if reps > 1 and ms.spread() and sleep < 10 * LONG_SLEEP_CYCLES:
+        again = time_ms(torch, fn, flush, reps, 10 * sleep)
+        return Ms(again.readings, again.sleep, again.late, short=ms)
+    return ms
 
 
 def decode_bound(q, kp, tables, lengths, window):
@@ -543,8 +629,8 @@ def phase_kernel(torch, kops, kref):
     print(f"phase 3 kernel serving bf16 (B8 Hq48 Hkv4 D128 page16 maxp272 "
           f"window4096 lengths {lengths}): max_abs_err={err:.3e} "
           f"limit_share={share:.3f} (limit {BF16_ULPS} ulps + {FP32_TOL}) "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+          f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain_ms)} "
+          f"library_ms={fmt_ms(library_ms)} bound_ms={bound_ms:.4f} "
           f"({bound_by}, {nbytes} B) splits={n_splits} split_keys={sk} "
           f"busy_ctas={busy} launched_ctas={n_splits * hkv * b}")
     # the split size, by measurement (SPLIT_KEYS in kernels/flash_decode.py)
@@ -552,7 +638,7 @@ def phase_kernel(torch, kops, kref):
         *case, window=window, split_keys=k), flush, 50)
         for k in (64, 128, 256, 512, 1024)}
     print("phase 3 split_keys sweep (bf16 serving case, ms): " + " ".join(
-        f"{k}={v:.4f}" for k, v in sweep.items()))
+        f"{k}={fmt_ms(v)}" for k, v in sweep.items()))
     del kd, vd, mask, case, out_k, out_p
 
     full = decode_case(torch, **shape, lengths=[4096] * 8,
@@ -562,7 +648,7 @@ def phase_kernel(torch, kops, kref):
     full_bound, full_by, full_bytes = decode_bound(full[0], full[1],
                                                    full[3], full[4], window)
     print(f"phase 3 kernel all 8 slots at 4096 visible keys bf16: "
-          f"ms={full_ms:.4f} bound_ms={full_bound:.4f} ({full_by}, "
+          f"ms={fmt_ms(full_ms)} bound_ms={full_bound:.4f} ({full_by}, "
           f"{full_bytes} B) busy_ctas="
           f"{sum(fdk.busy_splits([4096] * b, maxp, page, window, sk)) * hkv}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1044,10 +1130,8 @@ def phase_topk(torch):
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
 
     def per_leaf_ms(fn, reps):
-        fn(fire[0], ks[0])
-        torch.cuda.synchronize()
-        return sum(time_ms(torch, lambda: fn(x, k), flush, 1)
-                   for _ in range(reps) for x, k in zip(fire, ks)) / reps
+        return fire_each_ms(torch, lambda xk: fn(*xk), list(zip(fire, ks)),
+                            flush, reps)
 
     leaf_ms = per_leaf_ms(tkm.topk_compress, 5)
     readings, host_ms = fire_ms(
@@ -1074,11 +1158,13 @@ def phase_topk(torch):
           f"topk_compress_radix_plain in {check_s:.2f}s; control without "
           f"eq_before differs in {control} indices")
     print(f"phase 6 topk ResNet-18 fire ({len(fire)} leaves x {TOPK_ROWS} "
-          f"rows, fp32, L2 flushed): grouped ms={ms:.4f} "
-          f"(readings {fmt(readings)}, host enqueue up to {host_ms:.3f} ms) "
-          f"per_leaf_ms={leaf_ms:.4f} (55 calls, flushed before each) "
-          f"plain_ms={plain_ms:.4f} (55 calls, flushed before each) "
-          f"torch_topk_ms={library_ms:.4f} (torch.topk(|x|, k, "
+          f"rows, fp32, L2 flushed): grouped ms={ms:.4f} (median; mean "
+          f"{statistics.fmean(readings):.4f}; readings {fmt(readings)}, "
+          f"host enqueue up to {host_ms:.3f} ms) "
+          f"per_leaf_ms={fmt_ms(leaf_ms)} (55 calls, flushed before each) "
+          f"plain_ms={fmt_ms(plain_ms)} (55 calls, flushed before each) "
+          f"torch_topk_ms={library_ms:.4f} (median; mean "
+          f"{statistics.fmean(library):.4f}; torch.topk(|x|, k, "
           f"sorted=False) per leaf after one flush, tie order unspecified; "
           f"host enqueue up to {lib_host:.3f} ms) bound_ms={bound_ms:.4f} (bytes, {nbytes} B) "
           f"launches_per_fire={launches} (profiler)")
@@ -1146,9 +1232,11 @@ def phase_topk_rwkv(torch, randn, k_for, flush):
     print(f"phase 6 topk rwkv6-1.6b fire ({len(sizes)} leaves of "
           f"{RWKV_LAYERS} layers x 4 rows, fp32, {sum(sizes) * 16} B) in "
           f"{len(groups)} grouped calls (the reducer's 1 GiB groups), each "
-          f"leaf bit-identical to plain: ms={out['ms']:.4f} (readings "
-          f"{fmt(readings)}, host enqueue up to {host_ms:.3f} ms) "
-          f"torch_topk_ms={out['library_ms']:.4f} (host enqueue up to "
+          f"leaf bit-identical to plain: ms={out['ms']:.4f} (median; mean "
+          f"{statistics.fmean(readings):.4f}; readings {fmt(readings)}, "
+          f"host enqueue up to {host_ms:.3f} ms) "
+          f"torch_topk_ms={out['library_ms']:.4f} (median; mean "
+          f"{statistics.fmean(library):.4f}; host enqueue up to "
           f"{lib_host:.3f} ms) bound_ms="
           f"{out['bound_ms']:.4f} (bytes, {nbytes} B)")
     del fire
@@ -1261,11 +1349,12 @@ def read_counts(counters):
     return out
 
 
-def train_rounds(torch, hier, counters):
+def train_rounds(torch, hier, counters, require_fall=True):
     """Simulator.run(TRAIN_ROUNDS) at P = 16 as (1, 4, 4), sgd(0.1), 32
     examples per learner per step, with every launch count in
     ``counters`` set to 0 just before and read just after.  Fails unless
-    the losses are finite and the eval loss falls."""
+    the losses are finite and (with ``require_fall``) the eval loss
+    falls."""
     from repro_torch.core.simulator import Simulator
     from repro_torch.core.topology import HierTopology
     from repro_torch.optim import sgd
@@ -1301,7 +1390,7 @@ def train_rounds(torch, hier, counters):
     for name in ("losses", "eval_losses", "eval_accs", "grad_sq_norms"):
         if not np_isfinite(getattr(res, name)):
             fail(f"training {name} not finite: {getattr(res, name)}")
-    if not res.eval_losses[-1] < res.eval_losses[0]:
+    if require_fall and not res.eval_losses[-1] < res.eval_losses[0]:
         fail(f"eval loss did not fall: {res.eval_losses}")
     return sim, res, loss_fn, walls, run_s, launches, peak
 
@@ -1564,15 +1653,16 @@ def fmt_read(read) -> str:
 
 @contextlib.contextmanager
 def qr_replaced(fn):
-    """Every PowerSGD orthonormalization inside goes through ``fn(p)``
-    (comm/lowrank.py calls kernels/ops.py's batched_qr by attribute)."""
+    """Every PowerSGD orthonormalization inside goes through ``fn(p)``, a
+    panel stack at a time (comm/lowrank.py calls kernels/ops.py's
+    batched_qr_many by attribute)."""
     from repro_torch.kernels import ops
-    saved = ops.batched_qr
-    ops.batched_qr = lambda p, impl="auto": fn(p)
+    saved = ops.batched_qr_many
+    ops.batched_qr_many = lambda ps, impl="auto": [fn(p) for p in ps]
     try:
         yield
     finally:
-        ops.batched_qr = saved
+        ops.batched_qr_many = saved
 
 
 def qr_fp64(torch, p):
@@ -1605,15 +1695,12 @@ def psgd_witnesses(torch, loss_fn, hier, plan, np_state, batches):
             (kref.batched_qr_plain(p).double() - q64).abs().max().item())
         return q
 
-    def no_projection(p):
-        return p / torch.linalg.vector_norm(p, dim=-2, keepdim=True)
-
     runs = {}
     for label, fn in (("kernel", recording),
                       ("fp64", lambda p: qr_fp64(torch, p).to(p.dtype)),
                       ("one_pass", lambda p: kref.batched_qr_plain(
                           p, passes=1)),
-                      ("no_projection", no_projection)):
+                      ("no_projection", lambda p: no_projection(torch, p))):
         with qr_replaced(fn):
             runs[label] = rounds_from(torch, loss_fn, hier, plan, np_state,
                                       batches)
@@ -1624,9 +1711,15 @@ def psgd_witnesses(torch, loss_fn, hier, plan, np_state, batches):
                   "plain_vs_fp64": max(panels["plain_vs_fp64"])}
 
 
+def no_projection(torch, p):
+    """A control QR: each column normalized, none projected out."""
+    return p / torch.linalg.vector_norm(p, dim=-2, keepdim=True)
+
+
 def phase_codec_train(torch):
-    """Phase 9: plans A and B under the default bucketing; returns the
-    launch counts of each kernel on its plan's main path."""
+    """Phase 9: plans A, B and C under the default bucketing (PowerSGD
+    per leaf in plan C, the reducer's default layout); returns the launch
+    counts of each kernel on its plan's main path, summed over plans."""
     import dataclasses
 
     from repro_torch.comm import get_reducer
@@ -1644,24 +1737,34 @@ def phase_codec_train(torch):
     counters = {"qint8_pack": qp, "qint8_unpack": qu, "topk_compress": tk,
                 "batched_qr": bq}
     # buckets per fire on the uniform layout x fires in the 3 rounds
-    # (Pipelined hands the top-k kernel one bucket a call)
-    expect = {CODEC_PLANS[0]: {"qint8_pack": 10 * 4 * TRAIN_ROUNDS,
+    # (Pipelined hands the top-k and QR kernels one bucket a call); plan C
+    # makes one grouped QR call a fire for every compressible leaf
+    none = {"qint8_pack": 0, "qint8_unpack": 0, "topk_compress": 0,
+            "topk_compress_calls": 0, "batched_qr": 0,
+            "batched_qr_calls": 0}
+    expect = {CODEC_PLANS[0]: {**none, "qint8_pack": 10 * 4 * TRAIN_ROUNDS,
                                "qint8_unpack": 10 * 4 * TRAIN_ROUNDS,
                                "topk_compress": 10 * TRAIN_ROUNDS,
-                               "topk_compress_calls": 10 * TRAIN_ROUNDS,
-                               "batched_qr": 0},
-              CODEC_PLANS[1]: {"qint8_pack": 0, "qint8_unpack": 0,
-                               "topk_compress": 0, "topk_compress_calls": 0,
-                               "batched_qr": 10 * TRAIN_ROUNDS}}
+                               "topk_compress_calls": 10 * TRAIN_ROUNDS},
+              CODEC_PLANS[1]: {**none, "batched_qr": 10 * TRAIN_ROUNDS,
+                               "batched_qr_calls": 10 * TRAIN_ROUNDS},
+              CODEC_PLANS[2]: {**none,
+                               "batched_qr": RESNET_PSGD_LEAVES * TRAIN_ROUNDS,
+                               "batched_qr_calls": TRAIN_ROUNDS}}
     out = {}
-    for tag, spec in zip("AB", CODEC_PLANS):
+    for tag, spec in zip("ABC", CODEC_PLANS):
         hier = HierAvgParams(plan=spec)        # default bucketing
+        # plan C's eval loss need not fall in 3 rounds (per-leaf PowerSGD at
+        # rank 2 read 2.748, 2.571, 2.754 on an H100 with the earlier QR
+        # kernel too, PERF.md section 6): its kernel trajectory is held to
+        # the plain one below instead
         sim, res, loss_fn, walls, run_s, launches, peak = train_rounds(
-            torch, hier, counters)
+            torch, hier, counters, require_fall=tag != "C")
         if launches != expect[spec]:
             fail(f"plan {tag} {spec}: launches {launches} != "
                  f"{expect[spec]}")
-        out.update({k: v for k, v in launches.items() if v})
+        for k, v in launches.items():
+            out[k] = out.get(k, 0) + v
         parts = round_parts(torch, sim, res, loss_fn)
         layouts = "; ".join(
             f"{lvl.name}: {lvl.reducer.layout_for(res.state.params).describe()}"
@@ -1709,6 +1812,33 @@ def phase_codec_train(torch):
                   f"from one converted state, {len(pairs)} params/EF "
                   f"leaves and the losses {fmt(lk.tolist())} bit-identical")
             del sk, pairs
+        elif tag == "C":
+            # the kernel's grouped calls as the trainer makes them, and the
+            # control without projection, against the plain QR
+            runs = {"kernel": rounds_from(torch, loss_fn, hier, plan,
+                                          np_state, batches)}
+            with qr_replaced(lambda p: no_projection(torch, p)):
+                runs["no_projection"] = rounds_from(torch, loss_fn, hier,
+                                                    plan, np_state, batches)
+            lk = runs["kernel"][1]
+            read = {label: psgd_readings(torch, run[0], sp, run[1], lp)
+                    for label, run in runs.items()}
+            del runs
+            if not within_psgd_limits(read["kernel"]):
+                fail(f"plan C kernel vs plain QR after 2 rounds: "
+                     f"{read['kernel']} (limits: losses {PSGD_LOSS_TOL}, "
+                     f"params {PSGD_PARAM_TOL})")
+            if within_psgd_limits(read["no_projection"]):
+                fail(f"plan C control QR without projection reads "
+                     f"{read['no_projection']} against plain, within the "
+                     f"limits: they would not fail a wrong QR")
+            print(f"phase 9C kernel vs plain QR (one grouped call a fire): "
+                  f"2 rounds from one converted state, losses "
+                  f"{fmt(lk.tolist())} vs {fmt(lp.tolist())}; max|kernel - "
+                  f"plain| / max|plain| per part: {fmt_read(read['kernel'])} "
+                  f"(held: losses <= {PSGD_LOSS_TOL}, params <= "
+                  f"{PSGD_PARAM_TOL}); control without projection "
+                  f"{fmt_read(read['no_projection'])} (must fail)")
         else:
             runs, panels = psgd_witnesses(torch, loss_fn, hier, plan,
                                           np_state, batches)
@@ -1719,20 +1849,12 @@ def phase_codec_train(torch):
                 torch, runs["kernel"][0], runs["fp64"][0], lk,
                 runs["fp64"][1])
             del runs
-            if not within_psgd_limits(read["kernel"]):
-                fail(f"plan B kernel vs plain QR after 2 rounds: "
-                     f"{read['kernel']} (limits: losses {PSGD_LOSS_TOL}, "
-                     f"params {PSGD_PARAM_TOL})")
-            if within_psgd_limits(read["no_projection"]):
-                fail(f"plan B control QR without projection reads "
-                     f"{read['no_projection']} against plain, within the "
-                     f"limits: they would not fail a wrong QR")
+            lo, hi = panels["sigma2_over_sigma1"]
             print(f"phase 9B kernel vs plain QR: 2 rounds from one "
                   f"converted state, losses {fmt(lk.tolist())} vs "
                   f"{fmt(lp.tolist())}; max|kernel - plain| / max|plain| "
                   f"per part: {fmt_read(read['kernel'])} (held: losses <= "
                   f"{PSGD_LOSS_TOL}, params <= {PSGD_PARAM_TOL})")
-            lo, hi = panels["sigma2_over_sigma1"]
             print(f"phase 9B witnesses: on the kernel run's {panels['panels']}"
                   f" panels sigma2/sigma1 in [{lo:.3e}, {hi:.3e}], max|Q - "
                   f"Q_fp64| kernel {panels['kernel_vs_fp64']:.3e} plain "
@@ -1742,6 +1864,14 @@ def phase_codec_train(torch):
                   f"projection {fmt_read(read['no_projection'])} (must "
                   f"fail); kernel against fp64 QR "
                   f"{fmt_read(read['kernel_vs_fp64'])}")
+            if not within_psgd_limits(read["kernel"]):
+                fail(f"plan B kernel vs plain QR after 2 rounds: "
+                     f"{read['kernel']} (limits: losses {PSGD_LOSS_TOL}, "
+                     f"params {PSGD_PARAM_TOL})")
+            if within_psgd_limits(read["no_projection"]):
+                fail(f"plan B control QR without projection reads "
+                     f"{read['no_projection']} against plain, within the "
+                     f"limits: they would not fail a wrong QR")
         del sp, np_state
         profile_round(torch, make_hier_round(loss_fn, sgd(0.1), hier),
                       res.state, batches[0],
@@ -1816,35 +1946,159 @@ def phase_codecs(torch):
              f"{ties[1, 0, :7].tolist()}")
     qint8_check_s = time.perf_counter() - t0
     del cases, w, wp, u, up
+    print(f"phase 8 codecs: qint8 pack/unpack bit-identical to plain at the "
+          f"{len(sizes)} leaf sizes of ResNet-18 (16 rows, block 256), the "
+          f"bucket row [16, 2359296], block 255, block 128, bf16 input, "
+          f"ties (half to even), zeros, signed zeros, subnormals, 1e30 in "
+          f"{qint8_check_s:.2f}s")
 
-    # batched QR: raw Q against plain, projector and orthonormality against
-    # torch.linalg.qr, at the training shapes and ranks 1..8
+    # times of one local qint8 fire on the uniform layout (10 buckets of
+    # [16, 2359296]), L2 flushed before every launch
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    buckets = [randn(TOPK_ROWS, 2_359_296) for _ in range(10)]
+    wires = [kops.qint8_pack(b, QINT8_BLOCK, impl="kernel") for b in buckets]
+
+    n = buckets[0].shape[1]
+    pack_ms = fire_each_ms(torch, lambda x: kops.qint8_pack(
+        x, QINT8_BLOCK, impl="kernel"), buckets, flush, 5)
+    pack_plain = fire_each_ms(torch, lambda x: kops.qint8_pack(
+        x, QINT8_BLOCK, impl="plain"), buckets, flush, 2)
+    unpack_ms = fire_each_ms(torch, lambda w: kops.qint8_unpack(
+        w, n, impl="kernel"), wires, flush, 5)
+    unpack_plain = fire_each_ms(torch, lambda w: kops.qint8_unpack(
+        w, n, impl="plain"), wires, flush, 2)
+    qint8_bytes = sum(b.numel() * 4 + w.numel() for b, w in
+                      zip(buckets, wires))
+    qint8_bound = qint8_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 8 qint8 times (one local fire, 10 launches, L2 flushed "
+          f"before each): qint8_pack ms={fmt_ms(pack_ms)} plain_ms="
+          f"{fmt_ms(pack_plain)} bound_ms={qint8_bound:.4f} (bytes, "
+          f"{qint8_bytes} B); qint8_unpack ms={fmt_ms(unpack_ms)} plain_ms="
+          f"{fmt_ms(unpack_plain)} bound_ms={qint8_bound:.4f}; no single "
+          f"PyTorch call computes either")
+    del buckets, wires
+    torch.cuda.empty_cache()
+    qr = phase_qr(torch, randn, flush)
+    del flush
+    torch.cuda.empty_cache()
+    base = {"library_ms": None}
+    return ({**base, "max_abs_err": worst_q, "ms": pack_ms,
+             "plain_ms": pack_plain, "bound_ms": qint8_bound,
+             "bound_by": "bytes"},
+            {**base, "max_abs_err": worst_u, "ms": unpack_ms,
+             "plain_ms": unpack_plain, "bound_ms": qint8_bound,
+             "bound_by": "bytes"},
+            qr)
+
+
+def fire_each_ms(torch, fn, items, flush, reps, sleep=100_000) -> Ms:
+    """A fire of one call per item, each call timed after its own flush:
+    the readings are the fires' sums.  Read again after a sleep ten times
+    as long where their mean and median differ, as time_ms does."""
+    fn(items[0])
+    torch.cuda.synchronize()
+    fires = [[time_ms(torch, lambda: fn(it), flush, 1, sleep)
+              for it in items] for _ in range(reps)]
+    ms = Ms([sum(f) for f in fires], sleep,
+            sum(t.late for f in fires for t in f), timed=reps * len(items))
+    if reps > 1 and ms.spread() and sleep < 10 * LONG_SLEEP_CYCLES:
+        again = fire_each_ms(torch, fn, items, flush, reps, 10 * sleep)
+        return Ms(again.readings, again.sleep, again.late, short=ms,
+                  timed=again.timed)
+    return ms
+
+
+def qr_fires():
+    """Phase 8's grouped QR calls, (label, segments): the Pipelined
+    PowerSGD fire's 10 buckets as one call, one ResNet-18 and one
+    rwkv6-1.6b (phase 12's size) per-leaf fire at rank 2."""
+    return [("(ii) 10 buckets", [(16, 1536, 2)] * 10),
+            ("(iii) resnet18 per leaf", list(RESNET_QR_FIRE)),
+            ("(iv) rwkv6 per leaf", list(RWKV_QR_FIRE))]
+
+
+def qr_bound_ms(shapes) -> float:
+    """Least time for the QR of these panels: each byte read once and
+    written once over HBM bandwidth (the operations are far below it)."""
+    return sum(2 * b * a * r * 4 for b, a, r in shapes) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_qr(torch, randn, flush):
+    """Phase 8's batched QR: the kernel against its plain version (raw Q
+    within QR_TOL), against batched_qr_blocked_plain (its arithmetic,
+    within QR_EMU_ULPS; a control on another schedule must fail that),
+    grouped calls against single-panel calls bit for bit, and projector
+    and orthonormality against torch.linalg.qr; a zero column and a panel
+    of condition 1e6; then the times of fires (i)-(v)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.batched_qr import batched_qr_many, panel_plan
+
     def orth_err(q):
-        r = q.shape[-1]
-        eye = torch.eye(r, device="cuda")
+        eye = torch.eye(q.shape[-1], device="cuda")
         return (q.transpose(-1, -2) @ q - eye).abs().max().item()
 
     def proj_err(q, p):
+        """max|Q Q^T - L L^T| against torch.linalg.qr's L, 1024 rows of
+        the [a, a] projectors at a time."""
         ql, _ = torch.linalg.qr(p)
-        return (q @ q.transpose(-1, -2)
-                - ql @ ql.transpose(-1, -2)).abs().max().item()
+        worst = 0.0
+        for i in range(0, q.shape[-2], 1024):
+            d = (q[..., i:i + 1024, :] @ q.transpose(-1, -2)
+                 - ql[..., i:i + 1024, :] @ ql.transpose(-1, -2))
+            worst = max(worst, d.abs().max().item())
+        return worst
 
-    qr_cases = [(f"[16,{a},2]", randn(16, a, 2)) for a in (3, 512, 1536)]
-    qr_cases += [(f"[16,1536,{r}]", randn(16, 1536, r)) for r in range(1, 9)]
-    worst_qr = worst_orth = worst_proj = 0.0
-    for label, p in qr_cases:
+    shapes = [(16, a, 2) for a in (3, 512, 1536)]
+    shapes += [(16, 1536, r) for r in range(1, 9)]
+    shapes += [(4, 65536, 8), (2, 40, 12), (1, 3000, 20), (3, 7, 3)]
+    for _, fire in qr_fires():
+        shapes += [sh for sh in dict.fromkeys(fire) if sh not in shapes]
+    t0 = time.perf_counter()
+    worst_qr = worst_rel = worst_orth = worst_proj = 0.0
+    worst_ulps, modes = 0, set()
+    for sh in shapes:
+        p = randn(*sh)
         q = kops.batched_qr(p, impl="kernel")
         qp = kops.batched_qr(p, impl="plain")
+        qe = kref.batched_qr_blocked_plain(p)
         torch.cuda.synchronize()
-        err = ((q - qp).abs().max() / qp.abs().max()).item()
+        err = (q - qp).abs().max().item()
+        rel = err / qp.abs().max().item()
+        ulps = ulps_apart(torch, q, qe)
         orth, proj = orth_err(q), proj_err(q, p)
-        if not err <= QR_TOL or not orth <= QR_ORTH_TOL \
+        label = f"{list(sh)} ({panel_plan(*sh[1:]).mode})"
+        if not rel <= QR_TOL or not orth <= QR_ORTH_TOL \
                 or not proj <= QR_ORTH_TOL:
-            fail(f"batched_qr {label}: raw Q vs plain {err:.3e} (tol "
+            fail(f"batched_qr {label}: raw Q vs plain {rel:.3e} (tol "
                  f"{QR_TOL}), |Q^T Q - I| {orth:.3e}, projector vs "
                  f"torch.linalg.qr {proj:.3e} (tol {QR_ORTH_TOL})")
-        worst_qr = max(worst_qr, (q - qp).abs().max().item())
+        if ulps > QR_EMU_ULPS:
+            fail(f"batched_qr {label}: {ulps} ulps from "
+                 f"batched_qr_blocked_plain (limit {QR_EMU_ULPS})")
+        worst_qr, worst_rel = max(worst_qr, err), max(worst_rel, rel)
         worst_orth, worst_proj = max(worst_orth, orth), max(worst_proj, proj)
+        worst_ulps = max(worst_ulps, ulps)
+        modes.add(panel_plan(*sh[1:]).mode)
+    # control: the emulation on another schedule (a row a thread at a
+    # time) must be further than the limit from the kernel
+    p = randn(16, 1536, 2)
+    control_ulps = ulps_apart(torch, kops.batched_qr(p, impl="kernel"),
+                              kref.batched_qr_blocked_plain(
+                                  p, panel_plan(1536, 2)._replace(unit=1)))
+    if not control_ulps > QR_EMU_ULPS:
+        fail(f"batched_qr: the control schedule reads {control_ulps} ulps, "
+             f"within the limit {QR_EMU_ULPS}: it would not fail a kernel "
+             f"that sums in another order")
+    # grouped calls against single-panel calls, bit for bit
+    grouped = 0
+    for label, fire in qr_fires() + [("all cases", shapes)]:
+        ps = [randn(*sh) for sh in fire]
+        for q, p in zip(batched_qr_many(ps), ps):
+            if not same_bits(torch, q, kops.batched_qr(p, impl="kernel")):
+                fail(f"batched_qr {label}: a grouped panel {list(p.shape)} "
+                     f"differs from its single call")
+            grouped += 1
     deficient = randn(16, 1536, 4)
     deficient[:, :, 2] = 0.0
     q = kops.batched_qr(deficient, impl="kernel")
@@ -1865,49 +2119,33 @@ def phase_codecs(torch):
     if not ill_one > QR_ORTH_TOL:
         fail(f"one-pass control reads |Q^T Q - I| {ill_one:.3e} <= "
              f"{QR_ORTH_TOL}: the limit would not fail plain CGS")
-    print(f"phase 8 codecs: qint8 pack/unpack bit-identical to plain at the "
-          f"{len(sizes)} leaf sizes of ResNet-18 (16 rows, block 256), the "
-          f"bucket row [16, 2359296], block 255, block 128, bf16 input, "
-          f"ties (half to even), zeros, signed zeros, subnormals, 1e30 in "
-          f"{qint8_check_s:.2f}s; batched_qr at [16,3,2] [16,512,2] "
-          f"[16,1536,1..8]: max|kernel-plain|={worst_qr:.3e} (tol {QR_TOL} "
-          f"x max|Q|) max|Q^T Q-I|={worst_orth:.3e} max projector vs "
-          f"torch.linalg.qr={worst_proj:.3e} (tol {QR_ORTH_TOL}); zero "
-          f"column exact; condition 1e6: |Q^T Q-I| kernel={ill_k:.3e} "
-          f"plain={ill_p:.3e} one-pass control={ill_one:.3e}")
+    print(f"phase 8 batched_qr: {len(shapes)} shapes ("
+          f"{', '.join(str(list(x)) for x in shapes)}; modes "
+          f"{sorted(modes)}) in {time.perf_counter() - t0:.2f}s: max|kernel"
+          f"-plain|={worst_qr:.3e} (max {worst_rel:.3e} of max|Q|, tol "
+          f"{QR_TOL}); vs batched_qr_blocked_plain {worst_ulps} ulps (limit "
+          f"{QR_EMU_ULPS}; the control schedule reads {control_ulps}, and "
+          f"fails, as it must); {grouped} panels of grouped calls "
+          f"bit-identical to single calls; max|Q^T Q-I|={worst_orth:.3e} "
+          f"max projector vs torch.linalg.qr={worst_proj:.3e} (tol "
+          f"{QR_ORTH_TOL}); zero column exact; condition 1e6: |Q^T Q-I| "
+          f"kernel={ill_k:.3e} plain={ill_p:.3e} one-pass control="
+          f"{ill_one:.3e}")
 
-    # times of one fire each, L2 flushed before every launch: a local qint8
-    # fire on the uniform layout (10 buckets of [16, 2359296]) and a
-    # bucketed PowerSGD fire's 10 QRs of [16, 1536, 2]
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    buckets = [randn(TOPK_ROWS, 2_359_296) for _ in range(10)]
-    wires = [kops.qint8_pack(b, QINT8_BLOCK, impl="kernel") for b in buckets]
+    # times, the L2 flushed before every launch, each reading after a
+    # LONG_SLEEP_CYCLES sleep: (i) the Pipelined fire's 10 calls of
+    # [16, 1536, 2]; (ii)-(iv) grouped calls; (v) the [4, 65536, 2] panel
+    def lib_fire(ps):
+        readings, _ = fire_ms(torch, lambda: [torch.linalg.qr(p) for p in ps],
+                              flush, 5, strict=False)
+        return Ms(readings, TOPK_SLEEP_CYCLES)
+
     panels = [randn(16, 1536, 2) for _ in range(10)]
-
-    def fire_ms(fn, items, reps):
-        fn(items[0])
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(reps):
-            for it in items:
-                total += time_ms(torch, lambda: fn(it), flush, 1)
-        return total / reps
-
-    n = buckets[0].shape[1]
-    pack_ms = fire_ms(lambda x: kops.qint8_pack(x, QINT8_BLOCK,
-                                                impl="kernel"), buckets, 5)
-    pack_plain = fire_ms(lambda x: kops.qint8_pack(x, QINT8_BLOCK,
-                                                   impl="plain"), buckets, 2)
-    unpack_ms = fire_ms(lambda w: kops.qint8_unpack(w, n, impl="kernel"),
-                        wires, 5)
-    unpack_plain = fire_ms(lambda w: kops.qint8_unpack(w, n, impl="plain"),
-                           wires, 2)
-    qr_ms = fire_ms(lambda p: kops.batched_qr(p, impl="kernel"), panels, 5)
-    qr_plain = fire_ms(lambda p: kops.batched_qr(p, impl="plain"), panels, 3)
-    qr_lib = fire_ms(lambda p: torch.linalg.qr(p), panels, 5)
-    qint8_bytes = sum(b.numel() * 4 + w.numel() for b, w in
-                      zip(buckets, wires))
-    qint8_bound = qint8_bytes / HBM_BYTES_PER_S * 1e3
+    qr_ms = fire_each_ms(torch, lambda p: kops.batched_qr(p, impl="kernel"),
+                         panels, flush, 10, LONG_SLEEP_CYCLES)
+    qr_plain = fire_each_ms(torch, lambda p: kops.batched_qr(p, impl="plain"),
+                            panels, flush, 3)
+    qr_lib = lib_fire(panels)
     a, r = 1536, 2
     qr_bytes = sum(2 * p.numel() * 4 for p in panels)
     # CGS2 per panel: two passes of (dots + update) against the j earlier
@@ -1916,27 +2154,33 @@ def phase_codecs(torch):
     t_bytes, t_ops = qr_bytes / HBM_BYTES_PER_S, qr_ops / FP32_FLOPS
     qr_bound = max(t_bytes, t_ops) * 1e3
     qr_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"phase 8 times (one fire, 10 launches, L2 flushed before each): "
-          f"qint8_pack ms={pack_ms:.4f} plain_ms={pack_plain:.4f} "
-          f"bound_ms={qint8_bound:.4f} (bytes, {qint8_bytes} B); "
-          f"qint8_unpack ms={unpack_ms:.4f} plain_ms={unpack_plain:.4f} "
-          f"bound_ms={qint8_bound:.4f}; no single PyTorch call computes "
-          f"either; batched_qr [16,1536,2] ms={qr_ms:.4f} "
-          f"plain_ms={qr_plain:.4f} torch_linalg_qr_ms={qr_lib:.4f} "
-          f"bound_ms={qr_bound:.6f} ({qr_by}, {qr_bytes} B, {qr_ops} "
-          f"flops)")
-    del buckets, wires, panels, flush
-    torch.cuda.empty_cache()
-    base = {"library_ms": None}
-    return ({**base, "max_abs_err": worst_q, "ms": pack_ms,
-             "plain_ms": pack_plain, "bound_ms": qint8_bound,
-             "bound_by": "bytes"},
-            {**base, "max_abs_err": worst_u, "ms": unpack_ms,
-             "plain_ms": unpack_plain, "bound_ms": qint8_bound,
-             "bound_by": "bytes"},
-            {"max_abs_err": worst_qr, "ms": qr_ms, "plain_ms": qr_plain,
-             "library_ms": qr_lib, "bound_ms": qr_bound,
-             "bound_by": qr_by})
+    lines = [f"(i) 10 calls of [16,1536,2]: ms={fmt_ms(qr_ms)} (fires "
+             f"{fmt(qr_ms.readings)}) plain_ms="
+             f"{fmt_ms(qr_plain)} torch_linalg_qr_ms={fmt_ms(qr_lib)} "
+             f"bound_ms={qr_bound:.6f} ({qr_by}, {qr_bytes} B, {qr_ops} "
+             f"flops)"]
+    fires = {}
+    for label, fire in qr_fires() + [("(v) [4,65536,2]", [(4, 65536, 2)])]:
+        ps = [randn(*sh) for sh in fire]
+        ms = time_ms(torch, lambda: batched_qr_many(ps), flush, 10,
+                     LONG_SLEEP_CYCLES)
+        fires[label] = {"ms": ms, "bound_ms": qr_bound_ms(fire),
+                        "library_ms": lib_fire(ps)}
+        lines.append(f"{label} ({len(fire)} segments, one call): "
+                     f"ms={fmt_ms(ms)} (readings {fmt(ms.readings)}) "
+                     f"torch_linalg_qr_ms="
+                     f"{fmt_ms(fires[label]['library_ms'])} bound_ms="
+                     f"{fires[label]['bound_ms']:.6f} (bytes)")
+        del ps
+    print("phase 8 batched_qr times (L2 flushed before each launch, sleep "
+          f"{LONG_SLEEP_CYCLES} cycles; torch.linalg.qr a call a segment "
+          f"after one flush): " + "; ".join(lines))
+    del panels
+    return {"max_abs_err": worst_qr, "ms": qr_ms, "plain_ms": qr_plain,
+            "library_ms": qr_lib, "bound_ms": qr_bound, "bound_by": qr_by,
+            "emulation_ulps": worst_ulps,
+            "fires": {k: {n: float(v) for n, v in f.items()}
+                      for k, f in fires.items()}}
 
 
 # --------------------------------------------------------------------- #
@@ -2160,11 +2404,11 @@ def phase_wkv(torch):
           f"fwd_ms={f_ms:.4f} (sleep {WKV_FWD_SLEEP_CYCLES} cycles; mean; "
           f"median {statistics.median(f_reps):.4f}; readings "
           f"{fmt(f_reps)}) "
-          f"plain_ms={f_plain:.4f} "
+          f"plain_ms={fmt_ms(f_plain)} "
           f"bound_ms={fb:.4f} ({fby}, {fbytes} B; the port's forward also "
           f"writes {ck_bytes} B of checkpoints); bwd_ms={b_ms:.4f} "
           f"(mean; median {statistics.median(b_reps):.4f}; readings "
-          f"{fmt(b_reps)}) plain_ms={b_plain:.4f} "
+          f"{fmt(b_reps)}) plain_ms={fmt_ms(b_plain)} "
           f"bound_ms={bb_:.4f} ({bby}, {bbytes} B); backward beyond "
           f"inputs, outputs and checkpoints: scratch {scratch} B, input "
           f"re-reads <= {rereads} B; library: none (no single PyTorch "
@@ -2354,12 +2598,13 @@ def phase_attention(torch):
           + "; rerun bit-identical")
     for label, t in records.items():
         print(f"phase 11 attention {label} (B4 S1024 Hq48 Hkv4 D128 causal, "
-              f"L2 flushed): fwd_ms={t['ms']:.4f} plain_ms="
-              f"{t['plain_ms']:.4f} sdpa_ms={t['library_ms']:.4f} "
+              f"L2 flushed): fwd_ms={fmt_ms(t['ms'])} plain_ms="
+              f"{fmt_ms(t['plain_ms'])} sdpa_ms={fmt_ms(t['library_ms'])} "
               f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}, "
-              f"{t['flops']} flops, {t['basis']}); bwd_ms={t['bwd_ms']:.4f}"
-              f" plain_ms={t['bwd_plain_ms']:.4f} sdpa_bwd_ms="
-              f"{t['bwd_library_ms']:.4f} bound_ms={t['bwd_bound_ms']:.4f} "
+              f"{t['flops']} flops, {t['basis']}); bwd_ms="
+              f"{fmt_ms(t['bwd_ms'])} plain_ms={fmt_ms(t['bwd_plain_ms'])} "
+              f"sdpa_bwd_ms={fmt_ms(t['bwd_library_ms'])} "
+              f"bound_ms={t['bwd_bound_ms']:.4f} "
               f"({t['bwd_bound_by']}, {t['bwd_flops']} flops, "
               f"{t['bwd_basis']})")
     t = records["training fp32"]
@@ -2725,7 +2970,8 @@ def main() -> None:
               codec_launches["qint8_unpack"], unpack),
         entry("batched_qr", "batched_qr.cu",
               "src/repro/kernels/batched_qr.py:78",
-              codec_launches["batched_qr"], qr),
+              codec_launches["batched_qr"],
+              {**qr, "grouped_calls": codec_launches["batched_qr_calls"]}),
         entry("rwkv6_wkv_forward", "rwkv6_wkv.cu",
               "src/repro/kernels/rwkv6_wkv.py:69",
               rwkv_launches["rwkv6_wkv_forward"], wkv_fwd),

@@ -6,7 +6,7 @@ to a rank-r factorization by one step of subspace iteration, warm-started
 from the previous fire's right factor Q:
 
     P  = M Q                 # [a, r] left factor
-    P^ = orthonormalize(P)   # batched QR: kernels/ops.py::batched_qr
+    P^ = orthonormalize(P)   # batched QR: kernels/ops.py::batched_qr_many
     Q' = M^T P^              # [b, r] right factor (next fire's warm start)
     M^ = P^ Q'^T             # the rank-r approximation on the wire
 
@@ -16,7 +16,9 @@ reduction plus the error-feedback residual, and the grouped mean runs
 over each learner's reconstruction ``ref + P^ Q'^T``.  The three products
 are plain large products (``torch.matmul``/``einsum``), as the reference
 leaves them to XLA; the orthonormalization is the hand-written CGS2 kernel
-``kernels/csrc/batched_qr.cu`` for CUDA tensors.
+``kernels/csrc/batched_qr.cu`` for CUDA tensors, one grouped call a fire
+for every compressible leaf (or for the one bucket of a ``Pipelined``
+stage).
 
 Leaves whose per-learner shape is not a matrix with min(a, b) > r (biases,
 norm gains) are transmitted dense, the paper's "rank-1 tensors
@@ -110,28 +112,47 @@ class PowerSGDReducer(Reducer):
                             q=unflatten(treedef, qs))
 
     def compress(self, tree, state: LowRankState):
+        """Every compressible leaf's ``P = M Q`` first, then one grouped
+        QR call for all of them (``ops.batched_qr_many``), then ``Q'``,
+        the approximation and the residual.  Only the panels live across
+        the call: each leaf's delta is formed again after it, which gives
+        the same bits."""
         flat, treedef = flatten(tree)
         refs = leaves(state.ref)
         errs = leaves(state.err)
         qs = flatten_up_to(treedef, state.q)
+
+        def delta(i):
+            return (flat[i].float() - refs[i].float()) + errs[i]
+
+        def matrix(i):
+            a, b = _matrix_dims(learner_shape(flat[i]))
+            return delta(i).reshape(_rows(flat[i]), a, b)
+
+        def factors(i, p_hat):
+            # a leaf's temporaries (its delta and approximation) die here,
+            # before the next leaf's are formed
+            m = matrix(i)
+            q_new = torch.einsum("nab,nar->nbr", m, p_hat)
+            err = m - torch.einsum("nar,nbr->nab", p_hat, q_new)
+            return q_new, err.reshape(errs[i].shape)
+
+        low = [i for i, x in enumerate(flat) if self._compressible(x)]
+        panels = [torch.matmul(matrix(i), qs[i].reshape(
+            _rows(flat[i]), -1, self.rank)) for i in low]
+        p_hats = dict(zip(low, ops.batched_qr_many(panels, impl=self.impl)))
+        del panels
         payload, new_errs, new_qs = [], [], []
-        for x, r, e, q in zip(flat, refs, errs, qs):
-            delta = (x.float() - r.float()) + e
-            if not self._compressible(x):
-                payload.append(delta)          # dense fallback on the wire
+        for i, (e, q) in enumerate(zip(errs, qs)):
+            if i not in p_hats:
+                payload.append(delta(i))       # dense fallback on the wire
                 new_errs.append(torch.zeros_like(e))
                 new_qs.append(q)
                 continue
-            rows = _rows(x)
-            a, b = _matrix_dims(learner_shape(x))
-            m = delta.reshape(rows, a, b)
-            p_hat = ops.batched_qr(
-                torch.matmul(m, q.reshape(rows, b, self.rank)),
-                impl=self.impl)
-            q_new = torch.einsum("nab,nar->nbr", m, p_hat)
-            approx = torch.einsum("nar,nbr->nab", p_hat, q_new)
+            p_hat = p_hats.pop(i)
+            q_new, err = factors(i, p_hat)
             payload.append((p_hat, q_new))
-            new_errs.append((m - approx).reshape(e.shape))
+            new_errs.append(err)
             new_qs.append(q_new.reshape(q.shape))
         return payload, LowRankState(state.ref, unflatten(treedef, new_errs),
                                      unflatten(treedef, new_qs))

@@ -121,6 +121,22 @@ def batched_qr(p: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     return bqr(p)
 
 
+def batched_qr_many(ps: Sequence[torch.Tensor], *, impl: str = "auto"
+                    ) -> List[torch.Tensor]:
+    """:func:`batched_qr` of each p, in one kernel call for CUDA tensors.
+    The plain version calls :func:`batched_qr` on each in turn.  The
+    kernel counts a launch per segment in
+    ``kernels.batched_qr.batched_qr.launches`` and the grouped calls in
+    ``.calls``; a panel's Q is the same bits alone or in a group."""
+    ps = list(ps)
+    if not ps:
+        return []
+    if _resolve(impl, ps[0]) == "plain":
+        return [batched_qr(p, impl="plain") for p in ps]
+    from repro_torch.kernels.batched_qr import batched_qr_many as bqm
+    return bqm(ps)
+
+
 # --------------------------------------------------------------------- #
 # differentiable kernels: attention and WKV6, forward and backward
 #

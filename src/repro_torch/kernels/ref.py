@@ -338,6 +338,97 @@ def batched_qr_plain(p: torch.Tensor, passes: int = 2) -> torch.Tensor:
     return q.reshape(p.shape).to(p.dtype)
 
 
+def qr_rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt(x) on fp32, correctly rounded, as the QR kernel forms it
+    (``__frsqrt_rn``).  The fp64 value rounded to fp32 is within one fp32
+    ulp of the answer; the midpoints m beside it decide, by the sign of
+    m^2 x - 1, computed exactly: m^2 is exact in fp64 (25-bit m), split
+    into a 26-bit and a 27-bit part whose products with x (24 bits) are
+    exact, and hx - 1 is exact by Sterbenz's lemma (hx near 1).  Zero and
+    non-finite inputs keep the fp64 value's rounding."""
+    xd = x.double()
+    y = (1.0 / torch.sqrt(xd)).float()
+    zero = torch.zeros_like(y)
+    lo = torch.nextafter(y, zero)
+    hi = torch.nextafter(y, torch.full_like(y, torch.inf))
+
+    def above_one(m):                           # sign of m^2 x - 1
+        m2 = m * m
+        c = 134217729.0 * m2                    # 2^27 + 1: Veltkamp split
+        h = c - (c - m2)
+        return (h * xd - 1.0) + (m2 - h) * xd
+
+    yd = y.double()
+    out = torch.where(above_one((yd + hi.double()) / 2) < 0, hi, y)
+    out = torch.where(above_one((lo.double() + yd) / 2) > 0, lo, out)
+    ok = torch.isfinite(x) & (x > 0) & torch.isfinite(y) & (y > 0)
+    return torch.where(ok, out, y)
+
+
+def batched_qr_blocked_plain(p: torch.Tensor, plan=None) -> torch.Tensor:
+    """:func:`batched_qr_plain` in the CUDA kernel's own schedule and
+    arithmetic (``csrc/batched_qr.cu``), for the tests and the on-card
+    checks: every fp32 operation of the kernel, each ``fmaf`` rounded once
+    (:func:`fmaf`), so that the kernel's Q should equal it to the bit.
+
+    ``plan`` is the panel's ``kernels.batched_qr.PanelPlan`` (default
+    ``panel_plan(a, r)``, the kernel's): its CTAs hold the row ranges of
+    ``row_ranges``, and a CTA's thread t owns units t, t + threads, ... of
+    ``unit`` rows.  A thread's partial of each sum is an fmaf chain over
+    its rows in order from zero; the partials are summed over the warp's
+    32 lanes by halves (a butterfly), then the warp sums over (CTA, warp)
+    by halves.  A projection subtracts an fmaf chain over the earlier
+    columns from zero; the norm's inverse is :func:`qr_rsqrt` (correctly
+    rounded), or zero at or below ``QR_EPS``.  Same arguments and returns as the plain
+    version."""
+    from repro_torch.kernels.batched_qr import panel_plan
+    *lead, a, r = p.shape
+    if plan is None:
+        plan = panel_plan(a, r)
+    x = p.reshape(-1, a, r).float()
+    b = x.shape[0]
+    n, nthr = plan.ctas, plan.threads
+    owned = [plan.thread_rows(lo, hi) for lo, hi in plan.row_ranges(a)]
+    k_max = max(1, max(len(rows) for cta in owned for rows in cta))
+    idx = torch.full((n, nthr, k_max), -1, dtype=torch.long)
+    for c, cta in enumerate(owned):
+        for t, rows in enumerate(cta):
+            idx[c, t, :len(rows)] = torch.tensor(rows, dtype=torch.long)
+    idx = idx.to(x.device)
+    mask = idx >= 0                                    # [n, T, K]
+    xs = x[:, idx.clamp(min=0), :]                     # [B, n, T, K, r]
+    xs = torch.where(mask[None, ..., None], xs, torch.zeros_like(xs))
+    cols = [xs[..., j] for j in range(r)]              # [B, n, T, K] each
+    warps = nthr // 32
+
+    def total(part):                                   # [B, n, T, ...]
+        rest = part.shape[3:]
+        s = _halving_sum(part.reshape(b, n, warps, 32, *rest), 3)
+        return _halving_sum(s.reshape(b, n * warps, *rest), 1)
+
+    def chain(u, v):                                   # [B, n, T]
+        acc = torch.zeros(u.shape[:3], dtype=torch.float32, device=x.device)
+        for k in range(k_max):
+            acc = torch.where(mask[..., k], fmaf(u[..., k], v[..., k], acc),
+                              acc)
+        return acc
+
+    for j in range(r):
+        v = cols[j]
+        for _ in range(2 if j else 0):
+            c = total(torch.stack([chain(cols[k], v) for k in range(j)], -1))
+            s = torch.zeros_like(v)
+            for k in range(j):
+                s = fmaf(cols[k], c[:, k, None, None, None].expand_as(v), s)
+            v = v - s
+        nrm = total(chain(v, v))                       # [B]
+        inv = torch.where(nrm > QR_EPS, qr_rsqrt(nrm), torch.zeros_like(nrm))
+        cols[j] = v * inv[:, None, None, None]
+    q = torch.zeros_like(x)
+    q[:, idx[mask], :] = torch.stack(cols, -1)[:, mask, :]
+    return q.reshape(p.shape).to(p.dtype)
+
+
 # --------------------------------------------------------------------- #
 # causal / sliding-window GQA attention, forward and backward
 
