@@ -135,6 +135,22 @@ Phases (each prints one line of numbers; any failure exits non-zero):
   13. dense   starcoder2-15b the same way at 1 of 40 layers, default
               HierAvgParams(k1=2, k2=4), 1 x 1024 tokens per learner per
               step; then launch.train.main on the card (reduced rwkv6)
+  14. elastic ResNet-18 as in phase 7 (P = 16 as (1, 4, 4), sgd(0.1), 32
+              per learner per step) from one converted state: (a) 2
+              elastic rounds with all-true masks equal the dense rounds
+              bit for bit (params, EF, losses) for the per-leaf plan and
+              plan A on the pipelined buckets, and a mask with one learner
+              out must differ; (b) TRAIN_ROUNDS rounds of plan A under the
+              seeded ELASTIC_FAULTS schedule (its mask sha256 must be the
+              reference's), with the kernels and with the plain versions,
+              bit for bit, and every absent learner's params and EF bit
+              for bit unchanged across a missed fire; (c) the Simulator
+              with faults and a MetricsLogger, telemetry off and on, equal
+              bit for bit, rows valid; (d) save_elastic_checkpoint at 16
+              learners, elastic_restore onto (1, 2, 4), survivors bit for
+              bit, one round after it; (e) launch.train.main on the card
+              (reduced rwkv6) with --faults --telemetry --metrics-out
+              --trace-out --profile-dir --ckpt; walls and peak memory
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -289,6 +305,15 @@ LM_RWKV_PLAN = "local@2/global@8:topk:0.05"
 LM_LOSS_TOL = 1e-4
 LM_PARAM_TOL = 1e-4
 LM_SWAP_FRAC = 1e-4
+# phase 14: the per-leaf plan and plan A under participation masks, and
+# the seeded fault schedule of the faulted run; its mask stream over
+# TRAIN_ROUNDS rounds at (1, 4, 4), with the straggler deadlines priced
+# from the ResNet-18 template, hashes to the reference's (computed on the
+# CPU by repro.elastic with the same spec, seed and deadlines)
+ELASTIC_PLANS = (TRAIN_PLAN, CODEC_PLANS[0])
+ELASTIC_FAULTS = "crash:0.02/flaky:group:0.2:2/straggler:0.1:1.5"
+ELASTIC_MASK_SHA = ("c6a817faf5c66c8cf4fec59a44b9a2d653e43f30981c9a5275aa4f0"
+                    "d29e6a507")
 
 
 def fail(msg: str) -> None:
@@ -1429,19 +1454,50 @@ def round_parts(torch, sim, res, loss_fn):
     return parts
 
 
-def rounds_from(torch, loss_fn, hier, plan, np_state, batches):
-    """Rounds of ``plan`` from a converted state: (state, losses)."""
+def rounds_from(torch, loss_fn, hier, plan, np_state, batches, masks=None,
+                walls=None):
+    """Rounds of ``plan`` from a converted state: (state, losses).  With
+    ``masks`` (one ``[n_levels, pods, G, S]`` mask a round) the rounds are
+    elastic; ``walls``, a list, receives each round's wall in ms across a
+    synchronize."""
     from repro_torch.convert import train_state_from_jax
     from repro_torch.core.hier_avg import make_hier_round
     from repro_torch.optim import sgd
 
-    rnd = make_hier_round(loss_fn, sgd(0.1), hier, plan=plan)
+    rnd = make_hier_round(loss_fn, sgd(0.1), hier, plan=plan,
+                          elastic=masks is not None)
     state = train_state_from_jax(np_state, device="cuda")
     losses = []
-    for b in batches:
-        state, m = rnd(state, b)
+    for i, b in enumerate(batches):
+        if walls is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = rnd(state, b) if masks is None else rnd(state, b, masks[i])
+        if walls is not None:
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
         losses.append(m["loss"])
     return state, torch.stack(losses)
+
+
+def plain_plan(plan):
+    """``plan`` with every codec on its plain PyTorch version."""
+    import dataclasses
+
+    from repro_torch.comm import get_reducer
+    from repro_torch.core.plan import ReductionPlan
+    return ReductionPlan(tuple(
+        dataclasses.replace(lvl, reducer=get_reducer(
+            lvl.reducer.describe(), **({} if lvl.reducer.name == "mean"
+                                       else {"impl": "plain"})))
+        for lvl in plan.levels))
+
+
+def differing(torch, ka, kb, la, lb):
+    """(state leaves (params, EF) and loss vectors that differ in a bit,
+    pairs compared)."""
+    pairs = state_pairs(ka, kb) + [(la, lb)]
+    return sum(not same_bits(torch, a, b) for a, b in pairs), len(pairs)
 
 
 def state_pairs(ka, kb):
@@ -1508,9 +1564,6 @@ def profile_round(torch, rnd, state, batch, label, classes):
 
 
 def phase_train(torch):
-    import dataclasses
-
-    from repro_torch.comm.sparse import TopKReducer
     from repro_torch.configs.base import HierAvgParams
     from repro_torch.convert import train_state_to_numpy
     from repro_torch.core.hier_avg import make_hier_round
@@ -1555,20 +1608,18 @@ def phase_train(torch):
     gen = torch.Generator(device="cuda").manual_seed(8)
     batches = [sim._round_batch(gen) for _ in range(2)]
     plan = ReductionPlan.parse(TRAIN_PLAN)
-    plain_plan = ReductionPlan(plan.levels[:-1] + (dataclasses.replace(
-        plan.levels[-1], reducer=TopKReducer(TOPK_RATIO, impl="plain")),))
     sk, lk = rounds_from(torch, loss_fn, hier, plan, np_state, batches)
-    sp, lp = rounds_from(torch, loss_fn, hier, plain_plan, np_state, batches)
-    pairs = state_pairs(sk, sp)
-    differ = sum(not same_bits(torch, a, b) for a, b in pairs)
-    if differ or not same_bits(torch, lk, lp):
+    sp, lp = rounds_from(torch, loss_fn, hier, plain_plan(plan), np_state,
+                         batches)
+    differ, n = differing(torch, sk, sp, lk, lp)
+    if differ:
         fail(f"kernel and plain top-k trajectories differ: {differ} of "
-             f"{len(pairs)} state leaves, losses {lk.tolist()} vs "
+             f"{n} state leaves and losses, losses {lk.tolist()} vs "
              f"{lp.tolist()}")
     print(f"phase 7 kernel vs plain top-k: 2 rounds from one converted "
-          f"state, {len(pairs)} params/EF leaves and the losses "
+          f"state, {n - 1} params/EF leaves and the losses "
           f"{fmt(lk.tolist())} bit-identical")
-    del sk, sp, pairs, np_state
+    del sk, sp, np_state
 
     kernels = profile_round(torch, make_hier_round(loss_fn, sgd(0.1), hier),
                             res.state, batches[0],
@@ -1581,7 +1632,7 @@ def phase_train(torch):
     print(f"phase 7 trace: {per_fire} top-k kernel launches in the round's "
           f"one global fire (limit {TOPK_LAUNCHES_PER_FIRE})" if kernels else
           "phase 7 trace: top-k launches per fire not measured (no trace)")
-    return launches, calls
+    return launches, calls, walls
 
 
 def mean_cast_bit_identity(torch, params):
@@ -1720,9 +1771,6 @@ def phase_codec_train(torch):
     """Phase 9: plans A, B and C under the default bucketing (PowerSGD
     per leaf in plan C, the reducer's default layout); returns the launch
     counts of each kernel on its plan's main path, summed over plans."""
-    import dataclasses
-
-    from repro_torch.comm import get_reducer
     from repro_torch.configs.base import HierAvgParams
     from repro_torch.convert import train_state_to_numpy
     from repro_torch.core.hier_avg import make_hier_round
@@ -1794,24 +1842,19 @@ def phase_codec_train(torch):
         gen = torch.Generator(device="cuda").manual_seed(8)
         batches = [sim._round_batch(gen) for _ in range(2)]
         plan = ReductionPlan.parse(spec)
-        plain = ReductionPlan(tuple(
-            dataclasses.replace(lvl, reducer=get_reducer(
-                lvl.reducer.describe(), **({} if lvl.reducer.name == "mean"
-                                           else {"impl": "plain"})))
-            for lvl in plan.levels))
-        sp, lp = rounds_from(torch, loss_fn, hier, plain, np_state, batches)
+        sp, lp = rounds_from(torch, loss_fn, hier, plain_plan(plan),
+                             np_state, batches)
         if tag == "A":
             sk, lk = rounds_from(torch, loss_fn, hier, plan, np_state,
                                  batches)
-            pairs = state_pairs(sk, sp) + [(lk, lp)]
-            differ = sum(not same_bits(torch, a, b) for a, b in pairs)
+            differ, n = differing(torch, sk, sp, lk, lp)
             if differ:
                 fail(f"plan A kernel and plain trajectories differ in "
-                     f"{differ} of {len(pairs)} state leaves and losses")
+                     f"{differ} of {n} state leaves and losses")
             print(f"phase 9A kernel vs plain (qint8 and top-k): 2 rounds "
-                  f"from one converted state, {len(pairs)} params/EF "
+                  f"from one converted state, {n} params/EF "
                   f"leaves and the losses {fmt(lk.tolist())} bit-identical")
-            del sk, pairs
+            del sk
         elif tag == "C":
             # the kernel's grouped calls as the trainer makes them, and the
             # control without projection, against the plain QR
@@ -2885,6 +2928,313 @@ def phase_lm(torch):
 
 
 
+# --------------------------------------------------------------------- #
+# phase 14: elastic membership, telemetry, checkpoints and reshape
+
+
+def missed_fire_check(torch, state, plan, active):
+    """One fire of each level of the trainer's own reduce on ``state``
+    with the learners ``~active[i]`` out: their params and EF (every
+    stacked leaf) come out bit for bit unchanged, the others' change.
+    Returns the number of absent learners checked."""
+    from repro_torch.core.hier_avg import _make_reduce
+    from repro_torch.tree import leaves
+
+    reduce = _make_reduce(False)
+    checked = 0
+    for i, lvl in enumerate(plan.levels):
+        m = torch.as_tensor(active[i]).to("cuda")
+        out = reduce(lvl, state, m)
+        before = leaves(state.params) + leaves(state.comm_state)
+        after = leaves(out.params) + leaves(out.comm_state)
+        absent = (~m).nonzero().tolist()
+        stacked = [(a, b) for a, b in zip(before, after)
+                   if tuple(a.shape[:3]) == tuple(m.shape)]
+        for j in absent:
+            if not all(same_bits(torch, a[tuple(j)], b[tuple(j)])
+                       for a, b in stacked):
+                fail(f"phase 14: absent learner {j} changed across a "
+                     f"missed {lvl.name} fire")
+        present = m.nonzero().tolist()
+        if present and all(same_bits(torch, a[tuple(present[0])],
+                                     b[tuple(present[0])])
+                           for a, b in zip(leaves(state.params),
+                                           leaves(out.params))):
+            fail(f"phase 14: a present learner's params did not move in "
+                 f"the {lvl.name} fire")
+        checked += len(absent)
+        del out
+    return checked
+
+
+def phase_elastic(torch, phase7_walls):
+    """Phase 14: elastic rounds, a faulted run, telemetry, reshape and the
+    training CLI with its new flags; returns the launch counts of the
+    main path (the faulted kernel run and the CLI)."""
+    import hashlib
+    import warnings
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs.base import HierAvgParams
+    from repro_torch.convert import train_state_to_numpy
+    from repro_torch.core.hier_avg import (init_state, make_hier_round,
+                                           make_sgd_step)
+    from repro_torch.core.plan import ReductionPlan
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.core.topology import HierTopology
+    from repro_torch.elastic import (CommStateDropWarning, FaultSchedule,
+                                     elastic_restore, level_deadlines,
+                                     save_elastic_checkpoint)
+    from repro_torch.kernels.qint8_pack import qint8_pack as qp
+    from repro_torch.kernels.qint8_pack import qint8_unpack as qu
+    from repro_torch.kernels.rwkv6_wkv import (rwkv6_wkv_backward,
+                                               rwkv6_wkv_forward)
+    from repro_torch.kernels.topk_compress import topk_compress as tk
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import sgd
+    from repro_torch.telemetry import MetricsLogger, validate_jsonl
+    from repro_torch.tree import leaves
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    topo = HierTopology(1, 4, 4)
+    loss_fn, init_fn, sample, _ = resnet_task(torch)
+    n = 8 * topo.n_learners * 32
+
+    def round_batches(seed, count):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        out = []
+        for _ in range(count):
+            b = sample(gen, n)
+            out.append({k: v.reshape((4, 2) + topo.shape + (32,)
+                                     + tuple(v.shape[1:]))
+                        for k, v in b.items()})
+        return out
+
+    # (a) full participation: all-true masks equal the dense rounds bit for
+    # bit; a mask with one learner out must not
+    walls = {}
+    for tag, spec, kw in (("per leaf", ELASTIC_PLANS[0], {"bucket_bytes": 0}),
+                          ("plan A", ELASTIC_PLANS[1], {})):
+        hier = HierAvgParams(plan=spec, **kw)
+        plan = ReductionPlan.parse(spec)
+        state = init_state(topo, init_fn, sgd(0.1),
+                           torch.Generator(device="cuda").manual_seed(0),
+                           plan=hier.resolved_plan, device="cuda")
+        np_state = train_state_to_numpy(state)
+        del state
+        batches = round_batches(3, 2)
+        ones = torch.ones((2,) + topo.shape, dtype=torch.bool)
+        one_out = ones.clone()
+        one_out[:, 0, 0, 0] = False
+        wd, we = [], []
+        sd, ld = rounds_from(torch, loss_fn, hier, plan, np_state, batches,
+                             walls=wd)
+        se, le = rounds_from(torch, loss_fn, hier, plan, np_state, batches,
+                             [ones] * 2, walls=we)
+        bad, _ = differing(torch, sd, se, ld, le)
+        if bad:
+            fail(f"phase 14a {tag}: all-true elastic rounds differ from the "
+                 f"dense rounds in {bad} leaves")
+        del se
+        sc, lc = rounds_from(torch, loss_fn, hier, plan, np_state,
+                             batches[:1], [one_out])
+        sd1, ld1 = rounds_from(torch, loss_fn, hier, plan, np_state,
+                               batches[:1])
+        if not differing(torch, sd1, sc, ld1, lc)[0]:
+            fail(f"phase 14a {tag}: a mask with one learner out equals the "
+                 f"dense round (control)")
+        walls[tag] = (wd, we)
+        print(f"phase 14a {tag} {hier.resolved_plan.describe()}: 2 rounds "
+              f"all-true elastic == dense bit for bit (params, EF, losses "
+              f"{fmt(ld.tolist())}); one-learner-out control differs; round "
+              f"wall ms dense {fmt(wd)} elastic {fmt(we)}")
+        del sd, sc, sd1, np_state, batches
+
+    # (b) a faulted run, plan A on the pipelined buckets, with the kernels
+    # (the main path: counts set to 0 just before, read just after) and
+    # with the plain versions
+    hier = HierAvgParams(plan=ELASTIC_PLANS[1])
+    plan = ReductionPlan.parse(ELASTIC_PLANS[1])
+    resolved = hier.resolved_plan
+    tmpl_sim = Simulator(loss_fn, init_fn, sample, topo=topo, hier=hier,
+                         device="cuda")
+    deadlines = level_deadlines(resolved, topo, tmpl_sim.template())
+    faults = FaultSchedule(ELASTIC_FAULTS, topo,
+                           [lvl.name for lvl in resolved.levels], seed=0,
+                           deadlines=deadlines)
+    masks = [faults.active(r) for r in range(TRAIN_ROUNDS)]
+    sha = hashlib.sha256(b"".join(m.tobytes() for m in masks)).hexdigest()
+    if sha != ELASTIC_MASK_SHA:
+        fail(f"phase 14b: mask stream sha256 {sha} != the reference's "
+             f"{ELASTIC_MASK_SHA}")
+    fracs = [faults.active_frac(r).tolist() for r in range(TRAIN_ROUNDS)]
+    if all(f[-1] == 1.0 for f in fracs):
+        fail("phase 14b: no learner missed a global fire")
+    modeled = [tmpl_sim.round_wall_estimate(f) for f in fracs]
+    state = init_state(topo, init_fn, sgd(0.1),
+                       torch.Generator(device="cuda").manual_seed(0),
+                       plan=resolved, device="cuda")
+    np_state = train_state_to_numpy(state)
+    del state
+    batches = round_batches(4, TRAIN_ROUNDS)
+    counters = {"topk_compress": tk, "qint8_pack": qp, "qint8_unpack": qu}
+    zero_counts(counters)
+    wk, wp = [], []
+    sk, lk = rounds_from(torch, loss_fn, hier, plan, np_state, batches, masks,
+                         walls=wk)
+    launches = read_counts(counters)
+    if not all(launches[k] > 0 for k in counters):
+        fail(f"phase 14b: a kernel of the path was not launched: {launches}")
+    sp, lp = rounds_from(torch, loss_fn, hier, plain_plan(plan), np_state,
+                         batches, masks, walls=wp)
+    bad, _ = differing(torch, sk, sp, lk, lp)
+    if bad:
+        fail(f"phase 14b: kernel and plain faulted runs differ in {bad} "
+             f"leaves (losses {lk.tolist()} vs {lp.tolist()})")
+    del sp
+    # one more SGD step first, so that every learner's params differ
+    step = make_sgd_step(loss_fn, sgd(0.1))
+    st, _ = step(sk, {k: v[0, 0] for k, v in batches[0].items()})
+    checked = missed_fire_check(torch, st, resolved, masks[-1])
+    del st
+    print(f"phase 14b faulted run {ELASTIC_FAULTS} seed 0, plan "
+          f"{resolved.describe()}: deadlines {deadlines}; active fractions "
+          f"(local, global) {fracs}; modeled round walls s {modeled}; mask "
+          f"sha256 {sha}; losses {fmt(lk.tolist())}; kernel == plain bit for "
+          f"bit (params, EF, losses); round wall ms kernel {fmt(wk)} plain "
+          f"{fmt(wp)}; {checked} absent learners bit-unchanged across a "
+          f"missed fire; launches {launches}")
+    del sk, np_state, batches
+
+    # (c) telemetry: the Simulator with faults, fenced by a MetricsLogger,
+    # telemetry off and on
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tel in (None, True):
+            path = os.path.join(tmp, f"rows{tel}.jsonl")
+            logger = MetricsLogger(path)
+            sim = Simulator(loss_fn, init_fn, sample, topo=topo, hier=hier,
+                            optimizer=sgd(0.1), per_learner_batch=32, seed=0,
+                            faults=ELASTIC_FAULTS, telemetry=tel,
+                            metrics=logger, device="cuda")
+            res = sim.run(TRAIN_ROUNDS)
+            logger.close()
+            rows = validate_jsonl(path)
+            if len(rows) != TRAIN_ROUNDS:
+                fail(f"phase 14c: {len(rows)} train_round rows")
+            runs[tel] = res
+            del sim
+        off, on = runs[None], runs[True]
+        same = same_bits(torch, torch.from_numpy(off.losses),
+                         torch.from_numpy(on.losses)) and all(
+            same_bits(torch, a, b) for a, b in
+            zip(leaves(off.state.params), leaves(on.state.params)))
+        if not same:
+            fail(f"phase 14c: telemetry on changed the trajectory: losses "
+                 f"{off.losses} vs {on.losses}")
+        if not np_isfinite(list(on.stats.values())):
+            fail(f"phase 14c: telemetry stats not finite: {on.stats}")
+        stats = {k.replace("telemetry/", ""): "[" + ",".join(
+                     f"{float(x):.4e}" for x in v) + "]"
+                 for k, v in sorted(on.stats.items())}
+        print(f"phase 14c telemetry: losses and params with telemetry on "
+              f"== off bit for bit ({fmt(on.losses)}); {TRAIN_ROUNDS} rows "
+              f"valid; fenced (metrics=) round wall ms off "
+              f"{fmt(off.measured_wall_s * 1e3)} on "
+              f"{fmt(on.measured_wall_s * 1e3)}; stats {stats}")
+
+        # (d) reshape: 16 learners -> (1, 2, 4), survivors bit-preserved
+        state16 = on.state
+        del runs, off, on
+        ck = os.path.join(tmp, "fleet16")
+        t0 = time.perf_counter()
+        save_elastic_checkpoint(ck, state16, topo, step=state16.step,
+                                plan=resolved)
+        save_s = time.perf_counter() - t0
+        new_topo = HierTopology(1, 2, 4)
+        like = init_state(new_topo, init_fn, sgd(0.1),
+                          torch.Generator(device="cuda").manual_seed(1),
+                          plan=resolved, device="cuda")
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", CommStateDropWarning)
+            got = elastic_restore(ck, like, new_topo=new_topo)
+        restore_s = time.perf_counter() - t0
+        drops = [str(w.message) for w in caught
+                 if issubclass(w.category, CommStateDropWarning)]
+        del like
+        n_new = new_topo.n_learners
+        for a, b in zip(leaves(state16.params) + leaves(state16.comm_state),
+                        leaves(got.params) + leaves(got.comm_state)):
+            if tuple(a.shape[:3]) != topo.shape:
+                continue
+            a8 = a.reshape((-1,) + tuple(a.shape[3:]))[:n_new]
+            if not same_bits(torch, a8, b.reshape(a8.shape)):
+                fail("phase 14d: a survivor's state changed in the reshape")
+        del state16
+        rnd = make_hier_round(loss_fn, sgd(0.1), hier)
+        b = sample(torch.Generator(device="cuda").manual_seed(5),
+                   8 * n_new * 32)
+        b = {k: v.reshape((4, 2) + new_topo.shape + (32,)
+                          + tuple(v.shape[1:])) for k, v in b.items()}
+        got, m = rnd(got, b)
+        loss8 = float(m["loss"])
+        if not math.isfinite(loss8):
+            fail(f"phase 14d: loss after the reshape {loss8}")
+        print(f"phase 14d reshape: save_elastic_checkpoint at 16 learners "
+              f"({save_s:.2f}s), elastic_restore onto {new_topo.shape} "
+              f"({restore_s:.2f}s), survivors bit-preserved, "
+              f"CommStateDropWarning: {drops or 'none'}; one round after "
+              f"it: loss {loss8:.4f}")
+        del got, rnd, b
+
+        # (e) the training CLI on the card with the six new flags
+        wkv = {"rwkv6_wkv_forward": rwkv6_wkv_forward,
+               "rwkv6_wkv_backward": rwkv6_wkv_backward}
+        zero_counts(wkv)
+        out = {k: os.path.join(tmp, k) for k in ("ck", "m.jsonl",
+                                                  "trace.json", "prof")}
+        t0 = time.perf_counter()
+        train_cli.main(["--arch", "rwkv6-1.6b", "--rounds", "2",
+                        "--learners", "4", "--s", "2", "--batch", "2",
+                        "--seq", "64", "--reducer", "topk:0.1",
+                        "--faults", ELASTIC_FAULTS, "--telemetry",
+                        "--metrics-out", out["m.jsonl"],
+                        "--trace-out", out["trace.json"],
+                        "--profile-dir", out["prof"], "--ckpt", out["ck"]])
+        cli_s = time.perf_counter() - t0
+        wkv_launches = read_counts(wkv)
+        if not all(v > 0 for v in wkv_launches.values()):
+            fail(f"phase 14e: the training CLI did not launch both WKV "
+                 f"kernels: {wkv_launches}")
+        with open(out["trace.json"]) as f:
+            events = json.load(f)["traceEvents"]
+        prof = os.listdir(out["prof"])
+        arrays = load_checkpoint(out["ck"])
+        rows = validate_jsonl(out["m.jsonl"])
+        if not prof or not arrays or len(rows) != 2 or not all(
+                np_isfinite(a) for a in arrays.values()):
+            fail(f"phase 14e: profiler dir {prof}, {len(arrays)} "
+                 f"checkpoint arrays, {len(rows)} rows")
+        print(f"phase 14e cli: launch.train.main --arch rwkv6-1.6b "
+              f"(reduced) --reducer topk:0.1 --faults --telemetry "
+              f"--metrics-out --trace-out --profile-dir --ckpt on the card in "
+              f"{cli_s:.2f}s: {len(events)} trace events, profiler files "
+              f"{prof}, {len(arrays)} checkpoint arrays, {len(rows)} rows; "
+              f"WKV launches {wkv_launches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 14 walls: phase 7 dense rounds ms {fmt(phase7_walls)}; "
+          f"14a per leaf dense {fmt(walls['per leaf'][0])} elastic "
+          f"{fmt(walls['per leaf'][1])}; plan A dense "
+          f"{fmt(walls['plan A'][0])} elastic {fmt(walls['plan A'][1])}; "
+          f"14b masked kernel {fmt(wk)}; peak_mem_gib={peak:.2f}")
+    launches.update(wkv_launches)
+    return launches
+
+
 def np_isfinite(a) -> bool:
     import numpy as np
     return bool(np.isfinite(np.asarray(a)).all())
@@ -2939,7 +3289,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     topk = phase_topk(torch)
-    topk_launches, topk_calls = phase_train(torch)
+    topk_launches, topk_calls, phase7_walls = phase_train(torch)
     torch.cuda.empty_cache()
     pack, unpack, qr = phase_codecs(torch)
     codec_launches = phase_codec_train(torch)
@@ -2950,11 +3300,18 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     rwkv_launches, dense_launches = phase_lm(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic = phase_elastic(torch, phase7_walls)
 
     def entry(name, source, replaces, launches, numbers):
+        # phase 14's launches beside each kernel its path runs
+        extra = ({"elastic_launches": elastic[name]} if name in elastic
+                 else {})
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source}",
-                "replaces": replaces, "launches": launches, **numbers}
+                "replaces": replaces, "launches": launches, **numbers,
+                **extra}
 
     record = {"kernels": [
         entry("flash_decode", "flash_decode.cu",

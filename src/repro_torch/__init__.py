@@ -8,5 +8,7 @@ flash-decode kernel for Hopper, and the Hier-AVG trainer
 (``core/simulator.py::Simulator``) with every compressed reduction of the
 reference (mean, cast, top-k, random-k, qint8, PowerSGD), per leaf or on
 the bucket engine, through hand-written top-k, qint8 pack/unpack and
-batched-QR kernels.
+batched-QR kernels; elastic membership (``elastic/``), checkpoints
+(``checkpoint/``), telemetry (``telemetry/``) and the cost model
+(``core/theory.py``).
 """

@@ -10,4 +10,6 @@ from repro_torch.core.hier_avg import (TrainState, init_state,  # noqa: F401
                                        make_sgd_step, stacked_grad_fn)
 from repro_torch.core.baselines import (make_kavg_round,  # noqa: F401
                                         make_sync_sgd_round)
+from repro_torch.core.schedules import (AdaptiveK2,  # noqa: F401
+                                        AdaptivePlan, thm31_gamma, thm31_k2)
 from repro_torch.core.simulator import SimResult, Simulator  # noqa: F401

@@ -23,6 +23,12 @@ conv).  Each level's reduction is a tensor mean over that level's stacked
 axes (core/topology.py), optionally compressed per level by a comm/
 Reducer.  Rounds run eagerly and return new tensors; nothing is written
 in place, so the caller's state stays valid.
+
+Elastic rounds (``elastic=True``) take a participation mask per level:
+absent learners contribute weight 0 to the level's renormalized mean and
+keep their params and EF state untouched.  ``telemetry=`` adds the
+device-side statistics of ``repro_torch/telemetry/gradstats.py`` to the
+metrics without touching the trajectory.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from repro_torch.configs.base import HierAvgParams
 from repro_torch.core.plan import (PlanLike, ReductionLevel, ReductionPlan,
                                    apply_bucketing, apply_shards,
                                    init_comm_state, resolve_plan)
-from repro_torch.core.topology import HierTopology, average_over, stack_like
+from repro_torch.core.topology import (HierTopology, average_over,
+                                       stack_like, where_active)
 from repro_torch.optim import Optimizer
 from repro_torch.tree import leaves, tree_map
 
@@ -139,13 +146,18 @@ def _stack(ms):
 
 def make_sgd_step(loss_fn: Callable, optimizer: Optimizer,
                   grad_postprocess: Optional[Callable] = None,
-                  microbatch: int = 1):
+                  microbatch: int = 1,
+                  grad_observer: Optional[Callable] = None):
     """One local SGD step on all learners concurrently.
 
     ``microbatch > 1`` splits each learner's per-step batch (dim 3 of every
     leaf, after the [pods, G, S] axes) into that many contiguous slices and
     accumulates fp32 gradients over them — activation memory drops by the
     factor, FLOPs unchanged.
+
+    ``grad_observer`` (telemetry/gradstats.py): a pure function of the
+    stacked per-learner gradients returning extra scalar metrics keys —
+    a read-only tap, the update itself is untouched.
     """
     grad_fn = stacked_grad_fn(loss_fn)
 
@@ -175,6 +187,9 @@ def make_sgd_step(loss_fn: Callable, optimizer: Optimizer,
             grads, metrics = grad_fn(state.params, batch)
         else:
             grads, metrics = accumulated(state, batch)
+        if grad_observer is not None:
+            metrics = dict(metrics)
+            metrics.update(grad_observer(grads))
         if grad_postprocess is not None:
             grads = grad_postprocess(grads)
         params, opt_state = optimizer.update(grads, state.params,
@@ -186,35 +201,65 @@ def make_sgd_step(loss_fn: Callable, optimizer: Optimizer,
 
 
 def _make_reduce(sync_opt_state: bool):
-    """reduce(level, state) -> state after one compressed reduction at
-    that level, touching only that level's comm_state entry."""
+    """reduce(level, state, active=None) -> state after one compressed
+    reduction at that level, touching only that level's comm_state entry.
 
-    def reduce(level: ReductionLevel, state: TrainState) -> TrainState:
-        avg_fn = lambda tree, cf=None: average_over(tree, level.axes)  # noqa: E731
+    ``active`` (elastic membership, repro_torch/elastic): a boolean
+    ``[pods, G, S]`` participation mask on the state's device.  The
+    grouped mean renormalizes over the present learners only
+    (core/topology.py ``average_over``), and absent learners keep their
+    own params AND their EF/``comm_state`` untouched across the missed
+    fire (``where_active``).  ``active=None`` is the dense path."""
+
+    def reduce(level: ReductionLevel, state: TrainState,
+               active=None) -> TrainState:
+        avg_fn = lambda tree, cf=None: average_over(  # noqa: E731
+            tree, level.axes, mask=active)
         if level.reducer.stateful:
             params, lvl_cs = reduce_with(level.reducer, avg_fn, state.params,
                                          state.comm_state[level.name])
+            if active is not None:
+                lvl_cs = where_active(active, lvl_cs,
+                                      state.comm_state[level.name])
             comm_state = dict(state.comm_state)
             comm_state[level.name] = lvl_cs
         else:
             params, _ = reduce_with(level.reducer, avg_fn, state.params, ())
             comm_state = state.comm_state
+        if active is not None:
+            params = where_active(active, params, state.params)
         if sync_opt_state:
-            state = state._replace(opt_state=avg_fn(state.opt_state))
+            opt = avg_fn(state.opt_state)
+            if active is not None:
+                opt = where_active(active, opt, state.opt_state)
+            state = state._replace(opt_state=opt)
         return state._replace(params=params, comm_state=comm_state)
 
     return reduce
 
 
-def _refuse_unported(constraint_fn, shards, elastic, telemetry):
+def _refuse_unported(constraint_fn, shards):
     if constraint_fn is not None:
         _not_ported("constraint_fn (GSPMD sharding hints)", "7")
     if shards is not None:
         _not_ported("shards= (fsdp layouts)", "7")
-    if elastic:
-        _not_ported("elastic=True (participation masks)", "5")
-    if telemetry:
-        _not_ported("telemetry=", "5")
+
+
+def _device_masks(active, n_levels: int, params) -> torch.Tensor:
+    """The ``[n_levels, pods, G, S]`` participation mask as a bool tensor
+    on the params' device (a host mask goes up through pinned memory,
+    without a synchronize)."""
+    lead = tuple(leaves(params)[0].shape[:3])
+    m = torch.as_tensor(active, dtype=torch.bool)
+    if tuple(m.shape) != (n_levels,) + lead:
+        raise ValueError(f"active mask must be [n_levels, pods, G, S] = "
+                         f"{(n_levels,) + lead}, got {tuple(m.shape)}")
+    dev = leaves(params)[0].device
+    if m.device == dev:
+        return m
+    if dev.type == "cuda" and m.device.type == "cpu":
+        return m.pin_memory().to(dev, non_blocking=True)
+    return m.to(dev)
 
 
 def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
@@ -236,6 +281,16 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
     legacy 2-level plan that is the familiar [beta, K1, ...]; metrics are
     scalar means over the round.
 
+    ``elastic=True`` builds the participation-masked round instead:
+    ``round(state, round_batch, active) -> (state, metrics)`` with
+    ``active`` a boolean ``[n_levels, pods, G, S]`` mask (tensor or numpy;
+    level *i* of the plan, innermost first, uses ``active[i]`` for every
+    one of its fires this round).  Absent learners contribute weight 0 to
+    that level's renormalized mean and keep their params and EF state
+    untouched (see ``_make_reduce``); metrics gain
+    ``active_frac/<level>``.  With an all-true mask the round equals the
+    dense build bit for bit.
+
     ``plan`` — a ReductionPlan, a spec string, or None to use
     ``hier.plan`` / the legacy 2-level plan from ``hier.k1``/``hier.k2``.
     ``skip_local=True`` skips every reduction except the outermost (for
@@ -245,18 +300,31 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
     reducers carry ``TrainState.comm_state`` keyed by level name — build
     the initial state with ``init_state(..., plan=...)``.
 
+    ``telemetry`` (repro_torch/telemetry): ``True`` or a
+    ``TelemetryConfig`` adds device-side statistics to the metrics
+    (``telemetry/...`` keys, each a mean over the round's fires or
+    steps): per-level pre/post-average divergence, codec error, EF mass
+    and the cross-learner gradient-norm variance.  Pure observers: the
+    trajectory is bit for bit that of ``telemetry=None``.
+
     Not ported yet, and refused: ``constraint_fn`` and ``shards`` (ROADMAP
-    Queue 1 item 7), ``elastic`` and ``telemetry`` (item 5).
+    Queue 1 item 7).
     """
-    _refuse_unported(constraint_fn, shards, elastic, telemetry)
+    from repro_torch.telemetry.gradstats import (level_stats,
+                                                 make_grad_observer,
+                                                 resolve_telemetry)
+    _refuse_unported(constraint_fn, shards)
+    tcfg = resolve_telemetry(telemetry)
     p = resolve_plan(hier, reducer, plan)
     sgd_step = make_sgd_step(loss_fn, optimizer, grad_postprocess,
-                             microbatch=microbatch)
+                             microbatch=microbatch,
+                             grad_observer=make_grad_observer(
+                                 tcfg, p.levels) if tcfg else None)
     _reduce = _make_reduce(sync_opt_state)
     last = len(p.levels) - 1
     n_dims = len(p.batch_dims)
 
-    def round_fn(state: TrainState, round_batch):
+    def run(state: TrainState, round_batch, active):
         # the loop nest, flattened: level i runs over the round batch's
         # dim n-1-i, so it reduces after every prod(dims[n-1-i:]) steps,
         # innermost first.  One frame holds the running state, so a round
@@ -267,18 +335,47 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
         steps = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[n_dims:])),
                          round_batch)
         ms = []
+        stats: Dict[str, list] = {}
         for t in range(math.prod(dims)):
             state, m = sgd_step(state, tree_map(lambda x: x[t], steps))
             ms.append(m)
             for i, level in enumerate(p.levels):
                 if (t + 1) % every[i]:
                     break
-                if not (skip_local and i < last):
-                    state = _reduce(level, state)
-        # metrics leaves: [steps, pods, G, S] -> scalar means
-        return state, tree_map(lambda m: m.mean(), _stack(ms))
+                if skip_local and i < last:
+                    continue
+                # the pre-fire params are held only for the statistics,
+                # and never into the next step
+                pre = state.params if tcfg is not None else None
+                state = _reduce(level, state,
+                                None if active is None else active[i])
+                if tcfg is not None:
+                    # absent learners keep their (stale) params and
+                    # count toward divergence, as in the reference
+                    for k, v in level_stats(tcfg, level, pre, state.params,
+                                            state.comm_state).items():
+                        stats.setdefault(k, []).append(v)
+                    pre = None
+        # metrics leaves: [steps, pods, G, S] -> scalar means; a level's
+        # statistics: the mean over its fires
+        metrics = tree_map(lambda m: m.mean(), _stack(ms))
+        metrics.update({k: torch.stack(v).mean() for k, v in stats.items()})
+        return state, metrics
 
-    return round_fn
+    if not elastic:
+        def round_fn(state: TrainState, round_batch):
+            return run(state, round_batch, None)
+
+        return round_fn
+
+    def elastic_round_fn(state: TrainState, round_batch, active):
+        active = _device_masks(active, len(p.levels), state.params)
+        state, metrics = run(state, round_batch, active)
+        for i, lvl in enumerate(p.levels):
+            metrics[f"active_frac/{lvl.name}"] = active[i].float().mean()
+        return state, metrics
+
+    return elastic_round_fn
 
 
 # --------------------------------------------------------------------- #
@@ -295,20 +392,36 @@ def make_hier_step(loss_fn: Callable, optimizer: Optimizer,
                    elastic: bool = False):
     """Single-step variant: per-level firing on the step counter.
 
+    ``elastic=True`` builds ``step(state, batch, active)`` with ``active``
+    a boolean ``[n_levels, pods, G, S]`` participation mask; a firing
+    level reduces over its present learners only, and absent learners
+    keep their params/EF untouched (same semantics as the elastic
+    ``make_hier_round``).  An all-true mask equals the dense build bit
+    for bit.
+
     Level i fires when ``t % period_i == 0`` and the next level does NOT
     fire (an outer reduction subsumes all inner ones at the same step);
     the outermost level fires whenever its period divides t.  Equal to
     the round API for stateless reducers; for error-feedback reducers the
     round API also reduces inner levels at outer boundaries, so the two
     trajectories differ by the compression of an already-averaged delta.
+
+    Not ported yet, and refused: ``constraint_fn`` and ``shards`` (ROADMAP
+    Queue 1 item 7).
     """
-    _refuse_unported(constraint_fn, shards, elastic, None)
+    _refuse_unported(constraint_fn, shards)
     sgd_step = make_sgd_step(loss_fn, optimizer)
     p = resolve_plan(hier, reducer, plan)
     _reduce = _make_reduce(False)
     last = len(p.levels) - 1
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+    def step(state: TrainState, batch, active=None
+             ) -> Tuple[TrainState, Dict]:
+        if elastic:
+            if active is None:
+                raise ValueError("the elastic step needs the "
+                                 "[n_levels, pods, G, S] active mask")
+            active = _device_masks(active, len(p.levels), state.params)
         state, metrics = sgd_step(state, batch)
         t = state.step  # steps completed
         for i, level in enumerate(p.levels):
@@ -318,7 +431,8 @@ def make_hier_step(loss_fn: Callable, optimizer: Optimizer,
             if i < last:
                 fire = fire and t % p.levels[i + 1].period != 0
             if fire:
-                state = _reduce(level, state)
+                state = _reduce(level, state,
+                                active[i] if elastic else None)
         return state, metrics
 
     return step

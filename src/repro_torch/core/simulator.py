@@ -9,6 +9,7 @@ Used for the paper-shape runs (K2 / K1 / S sweeps, vs-K-AVG) and by
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -33,10 +34,34 @@ class SimResult:
     eval_accs: np.ndarray
     grad_sq_norms: np.ndarray   # ||grad F(w~_n)||^2 proxy at global syncs
     state: TrainState
+    # elastic (faults=) runs only: per-round participation fraction per
+    # plan level [n_rounds, n_levels] and the modeled round wall seconds
+    # under that round's actual participation
+    active_fracs: Optional[np.ndarray] = None
+    round_wall_s: Optional[np.ndarray] = None
+    # metrics= runs only: measured per-round wall seconds (each round is
+    # fenced by a synchronize — the documented telemetry cost)
+    measured_wall_s: Optional[np.ndarray] = None
+    # telemetry= runs only: per-round means of every device-side
+    # ``telemetry/...`` stat key (gradstats.py), [n_rounds] each
+    stats: Optional[Dict[str, np.ndarray]] = None
 
     @property
     def final_eval_acc(self) -> float:
         return float(self.eval_accs[-1])
+
+
+def init_template(init_fn: Callable, device) -> Any:
+    """The single-learner parameter tree of ``init_fn`` as meta tensors
+    (shapes and dtypes): ``init_fn`` runs once under ``FakeTensorMode``
+    with a generator of its own, so nothing is allocated on the device
+    and the caller's generators are not drawn from."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    gen = torch.Generator(device=device).manual_seed(0)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        tree = init_fn(gen)
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), tree)
 
 
 class Simulator:
@@ -48,8 +73,14 @@ class Simulator:
     on every leaf).  Batches and the init are drawn from one
     ``torch.Generator`` on ``device``, seeded by ``seed``.
 
-    Not ported yet, and refused: ``faults``, ``telemetry``, ``metrics``
-    and ``comm_model`` (ROADMAP Queue 1 item 5).
+    ``faults`` (a FaultSchedule or a spec string, hier only) drives
+    per-round participation masks through the elastic round;
+    ``comm_model`` prices straggler deadlines and modeled round walls
+    (core/theory.py); ``telemetry`` adds the device-side statistics of
+    telemetry/gradstats.py; ``metrics`` (a MetricsLogger) receives one
+    ``train_round`` row per round, with each round fenced so that its
+    wall is measured.  The parameter template these need comes from
+    :func:`init_template`: shapes only, nothing allocated.
     """
 
     def __init__(self, loss_fn: Callable, init_fn: Callable,
@@ -61,12 +92,6 @@ class Simulator:
                  comm_model: Optional[Any] = None,
                  telemetry: Any = None, metrics: Optional[Any] = None,
                  device="cuda"):
-        for name, val in (("faults=", faults), ("comm_model=", comm_model),
-                          ("telemetry=", telemetry), ("metrics=", metrics)):
-            if val is not None and val is not False:
-                raise NotImplementedError(
-                    f"Simulator({name}) is not ported yet: ROADMAP Queue 1 "
-                    f"item 5")
         self.loss_fn = loss_fn
         self.init_fn = init_fn
         self.sample = sample_batch
@@ -82,13 +107,43 @@ class Simulator:
         self.plan: ReductionPlan = resolve_plan(hier, reducer)
         # outermost level's reducer == the legacy single-reducer view
         self.reducer: Reducer = self.plan.levels[-1].reducer
+        # elastic membership: a FaultSchedule (or spec string — parsed
+        # against this plan's levels, with straggler deadlines priced
+        # from the CommModel level walls) drives per-round participation
+        # masks through the elastic round
+        self.comm_model = comm_model
+        self._template = None
+        self._wall_cache: Dict[tuple, float] = {}
+        self.faults = None
+        if faults is not None:
+            if algo != "hier":
+                raise ValueError(
+                    f"fault injection needs the elastic hier round; "
+                    f"algo={algo!r} does not take masks")
+            from repro_torch.elastic import FaultSchedule, level_deadlines
+            if isinstance(faults, FaultSchedule):
+                self.faults = faults
+            else:
+                self.faults = FaultSchedule(
+                    faults, topo, [lvl.name for lvl in self.plan.levels],
+                    seed=seed,
+                    deadlines=level_deadlines(self.plan, topo,
+                                              self.template(), comm_model))
         # the baselines are 2-level rounds, so an N-level hier's batch
         # collapses to (1, steps) for them
         legacy_dims = hier.batch_dims if len(hier.batch_dims) == 2 \
             else (1, hier.steps_per_round)
+        self.telemetry = telemetry
+        self.metrics = metrics
+        if telemetry and algo != "hier":
+            raise ValueError(
+                f"telemetry= needs the hier round; algo={algo!r} has no "
+                f"per-level reduction to instrument")
         if algo == "hier":
             self.round_fn = make_hier_round(loss_fn, self.optimizer, hier,
-                                            reducer=reducer)
+                                            reducer=reducer,
+                                            elastic=self.faults is not None,
+                                            telemetry=telemetry)
             self._batch_dims = self.plan.batch_dims
             self._init_plan = self.plan
         elif algo == "kavg":
@@ -108,6 +163,13 @@ class Simulator:
         else:
             raise ValueError(algo)
 
+    def template(self):
+        """The single-learner parameter template (meta tensors), built
+        once."""
+        if self._template is None:
+            self._template = init_template(self.init_fn, self.device)
+        return self._template
+
     def _eval(self, params1, batch):
         with torch.no_grad():
             return self.loss_fn(params1, batch)
@@ -123,25 +185,81 @@ class Simulator:
         return tree_map(lambda x: x.reshape(shape + tuple(x.shape[1:])),
                         batch)
 
+    def payload_bytes_per_reduction(self) -> int:
+        """Analytic per-learner wire bytes of one outermost (global)
+        reduction under the configured plan (dense fp32 for "mean")."""
+        return self.reducer.payload_bytes(self.template())
+
+    def payload_bytes_per_level(self) -> Dict[str, int]:
+        """Per-level analytic wire bytes of one reduction at each plan
+        level (per learner)."""
+        return {lvl.name: lvl.reducer.payload_bytes(self.template())
+                for lvl in self.plan.levels}
+
+    def round_wall_estimate(self, fracs) -> float:
+        """Modeled wall seconds of one round whose per-level participation
+        fractions were ``fracs`` (aligned with ``plan.levels``): each
+        level's billable count times its scheduled wall at an effective
+        drop probability of ``1 - frac`` (core/theory.py n_eff billing).
+        Memoized on the fraction tuple — a fleet takes few distinct
+        participation patterns."""
+        from repro_torch.core.theory import level_reduction_seconds
+        key = tuple(round(float(f), 6) for f in fracs)
+        if key in self._wall_cache:
+            return self._wall_cache[key]
+        counts = dict(self.plan.counts_per_round())
+        wall = 0.0
+        for lvl, f in zip(self.plan.levels, key):
+            wall += counts[lvl.name] * level_reduction_seconds(
+                lvl, self.topo, self.template(), self.comm_model,
+                drop_prob=1.0 - f)[2]
+        self._wall_cache[key] = wall
+        return wall
+
     def run(self, n_rounds: int,
             generator: Optional[torch.Generator] = None) -> SimResult:
         """Train ``n_rounds`` rounds from a fresh init.  Per-round scalars
-        stay on the device until the end, then come back in one copy."""
+        stay on the device until the end, then come back in one copy.
+        Participation fractions come from the host-side FaultSchedule
+        mask (no device read).  With a ``metrics=`` logger each round is
+        fenced by a synchronize to measure its wall — that serialization
+        is the logger's documented cost, off by default."""
         if generator is None:
             generator = torch.Generator(device=self.device) \
                 .manual_seed(self.seed)
         state = init_state(self.topo, self.init_fn, self.optimizer,
                            generator, plan=self._init_plan,
                            device=self.device)
-        rounds, evals = [], []
-        for _ in range(n_rounds):
+        rounds, evals, stats = [], [], []
+        fracs, walls, measured = [], [], []
+        observe = self.metrics is not None
+        stat_keys = None
+        for r in range(n_rounds):
             batch = self._round_batch(generator)
-            state, metrics = self.round_fn(state, batch)
+            t0 = time.perf_counter() if observe else 0.0
+            if self.faults is not None:
+                state, metrics = self.round_fn(state, batch,
+                                               self.faults.active(r))
+                f = [float(x) for x in self.faults.active_frac(r)]
+                fracs.append(f)
+                walls.append(self.round_wall_estimate(f))
+            else:
+                state, metrics = self.round_fn(state, batch)
+            if observe:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                measured.append(time.perf_counter() - t0)
             rounds.append(torch.stack([
                 metrics["loss"].float(),
                 metrics.get("accuracy", torch.tensor(float("nan"),
                                                      device=self.device))
                 .float()]))
+            if stat_keys is None:
+                stat_keys = sorted(k for k in metrics
+                                   if k.startswith("telemetry/"))
+            if stat_keys:
+                stats.append(torch.stack([metrics[k].float()
+                                          for k in stat_keys]))
             if self.eval_batch is not None:
                 p1 = unstack_first(state.params)
                 el, em = self._eval(p1, self.eval_batch)
@@ -154,7 +272,38 @@ class Simulator:
             else np.zeros((0, 2), np.float32)
         e = torch.stack(evals).cpu().numpy() if evals \
             else np.zeros((0, 3), np.float32)
-        return SimResult(r[:, 0], r[:, 1], e[:, 0], e[:, 1], e[:, 2], state)
+        st = torch.stack(stats).cpu().numpy() if stats else None
+        res = SimResult(
+            r[:, 0], r[:, 1], e[:, 0], e[:, 1], e[:, 2], state,
+            active_fracs=np.array(fracs) if fracs else None,
+            round_wall_s=np.array(walls) if walls else None,
+            measured_wall_s=np.array(measured) if measured else None,
+            stats=({k: st[:, i] for i, k in enumerate(stat_keys)}
+                   if st is not None else None))
+        if observe:
+            self._log_rows(res, n_rounds)
+        return res
+
+    def _log_rows(self, res: SimResult, n_rounds: int) -> None:
+        """One schema-versioned train_round row per round (telemetry/
+        metrics.py) plus the typed-channel aggregates."""
+        names = [lvl.name for lvl in self.plan.levels]
+        for r in range(n_rounds):
+            row = {"round": r, "loss": float(res.losses[r]),
+                   "accuracy": float(res.accs[r]),
+                   "wall_s": float(res.measured_wall_s[r]),
+                   "plan": self.plan.describe()}
+            if res.active_fracs is not None:
+                row["active_frac"] = dict(
+                    zip(names, (float(f) for f in res.active_fracs[r])))
+                row["modeled_wall_s"] = float(res.round_wall_s[r])
+            if res.stats:
+                row.update({k: float(v[r]) for k, v in res.stats.items()})
+            self.metrics.log_row("train_round", **row)
+            self.metrics.count("train/rounds")
+            self.metrics.histogram("train/round_wall_s", row["wall_s"])
+        self.metrics.gauge("train/loss", float(res.losses[-1]))
+        self.metrics.flush()
 
 
 def run_algo_comparison(loss_fn, init_fn, sample_batch, eval_batch, *,

@@ -113,8 +113,10 @@ def average_over(tree, axes: Tuple[int, ...], constraint_fn=None,
     ``mask`` — a boolean ``[pods, G, S]`` participation mask; absent
     learners contribute weight 0 and the sum renormalizes by the
     per-group survivor count (a group with no survivors yields 0, never
-    NaN).  At full participation the weights are exactly 1.0 and the
-    counts exactly n.
+    NaN).  The masked sums run through the same fixed tree as the dense
+    mean (:func:`ordered_means`), so at full participation, where every
+    weight is exactly 1.0 and every count exactly n, masked == unmasked
+    bit for bit, and a bucket's masked mean equals its leaves'.
 
     ``constraint_fn`` (GSPMD sharding hints) and ``bucket_specs`` (the
     shard-aware reduce-scatter lowering) belong to the multi-GPU
@@ -124,42 +126,15 @@ def average_over(tree, axes: Tuple[int, ...], constraint_fn=None,
         raise NotImplementedError(
             "constraint_fn / bucket_specs (sharded reductions) are not "
             "ported: ROADMAP Queue 1 item 7")
-    axes = tuple(axes)
-    if mask is None:
-        flat, treedef = flatten(tree)
-        return unflatten(treedef, ordered_means(flat, axes))
-
-    def avg(x):
-        w = _mask_weights(mask, x.dim(), x.dtype)
-        c = torch.sum(w, dim=axes, keepdim=True)
-        s = torch.sum(x * w, dim=axes, keepdim=True)
-        m = s / torch.clamp(c, min=1)         # all-absent group: 0, not NaN
-        return m.expand_as(x).clone()
-
-    return tree_map(avg, tree)
+    flat, treedef = flatten(tree)
+    return unflatten(treedef, ordered_means(flat, tuple(axes), mask))
 
 
-def ordered_means(xs, axes: Tuple[int, ...]):
-    """The mean of each tensor in ``xs`` over ``axes``, broadcast back to
-    its shape and materialised.  The learners are summed by a fixed tree
-    of elementwise adds in row-major learner order, then divided by their
-    count; 16-bit inputs sum in fp32.  Every element's sum runs in the
-    same order whatever the tensor's shape, so a bucket of leaves averages
-    bit for bit as the leaves do one by one (``torch.mean`` picks its
-    reduction order from the shape on the card).
-
-    The learner axes, which are adjacent, are flattened in place (a view),
-    each level of the tree adds two strided halves of every tensor in one
-    ``_foreach_add``, and the division writes the broadcast output
-    directly, so no input is copied."""
-    axes = tuple(sorted(axes))
-    d, e = axes[0], axes[-1]
-    if axes != tuple(range(d, e + 1)):
-        raise ValueError(f"learner axes {axes} are not adjacent")
-    ys = [(x.float() if x.dtype in (torch.bfloat16, torch.float16) else x)
-          .flatten(d, e) for x in xs]
-    n = ys[0].shape[d] if ys else 1
-    while ys and ys[0].shape[d] > 1:          # learner i + h joins learner i
+def _tree_sum(ys, d: int):
+    """Sum each tensor of ``ys`` over dim ``d`` (kept, size 1) by a fixed
+    tree of elementwise adds: learner i + h joins learner i, level by
+    level, each level one ``_foreach_add`` over every tensor."""
+    while ys and ys[0].shape[d] > 1:
         m = ys[0].shape[d]
         h = m // 2
         sums = torch._foreach_add([y.narrow(d, 0, h) for y in ys],
@@ -168,28 +143,81 @@ def ordered_means(xs, axes: Tuple[int, ...]):
             torch._foreach_add_([s.select(d, h - 1) for s in sums],
                                 [y.select(d, 2 * h) for y in ys])
         ys = sums
+    return ys
+
+
+def ordered_means(xs, axes: Tuple[int, ...], mask=None):
+    """The mean of each tensor in ``xs`` over ``axes``, broadcast back to
+    its shape and materialised.  The learners are summed by a fixed tree
+    of elementwise adds in row-major learner order, then divided by their
+    count; 16-bit inputs sum in fp32.  Every element's sum runs in the
+    same order whatever the tensor's shape, so a bucket of leaves averages
+    bit for bit as the leaves do one by one (``torch.mean`` picks its
+    reduction order from the shape on the card).
+
+    ``mask`` (boolean ``[pods, G, S]``, see :func:`average_over`): the
+    products ``x * w`` and the weights ``w`` are summed by the same tree,
+    then divided by the count clamped to 1.  The division is a true
+    division by a device tensor in both cases (on the card a division by a
+    host scalar multiplies by its reciprocal instead), so an all-true
+    mask gives the dense result bit for bit on the CPU and on the card.
+
+    The learner axes, which are adjacent, are flattened in place (a view),
+    and the division writes the broadcast output directly, so no input is
+    copied on the dense path."""
+    axes = tuple(sorted(axes))
+    d, e = axes[0], axes[-1]
+    if axes != tuple(range(d, e + 1)):
+        raise ValueError(f"learner axes {axes} are not adjacent")
+    if not xs:
+        return []
+    ys = [(x.float() if x.dtype in (torch.bfloat16, torch.float16) else x)
+          for x in xs]
+    dev = ys[0].device
+    if mask is None:
+        count = torch.full((), ys[0].shape[d:e + 1].numel(),
+                           dtype=torch.float32, device=dev)
+    else:
+        w = mask.to(device=dev, dtype=torch.float32)
+        ys = [y * w.reshape(tuple(w.shape) + (1,) * (y.dim() - w.dim()))
+              for y in ys]
+        count = torch.clamp(_tree_sum([w.flatten(d, e)], d)[0], min=1)
+    sums = _tree_sum([y.flatten(d, e) for y in ys], d)
     out = []
-    for x, y in zip(xs, ys):
+    for x, s in zip(xs, sums):
         keep = tuple(1 if i in axes else k for i, k in enumerate(x.shape))
+        c = count if mask is None else count.reshape(
+            keep[:mask.dim()] + (1,) * (x.dim() - mask.dim()))
         o = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        torch.div(y.reshape(keep).expand_as(x), n, out=o)
+        torch.div(s.reshape(keep).expand_as(x), c, out=o)
         out.append(o)
     return out
 
 
 def where_active(mask: torch.Tensor, new_tree, old_tree):
     """Per-learner select: active learners take ``new_tree``, absent ones
-    keep ``old_tree``.  Leaves carrying the full stacked lead
-    (``shape[:3] == mask.shape``) select per learner; all other leaves
-    take ``new``.  With an all-true mask every leaf is ``new`` exactly."""
-    lead = tuple(mask.shape)
+    keep ``old_tree`` (how elastic rounds keep an absent learner's params
+    and its EF state untouched across a missed fire).
+
+    Leaf alignment is by shape, as in the reference: leaves carrying the
+    full stacked lead (``shape[:3] == mask.shape``: params, optimizer
+    state, param- and bucket-space EF) select per learner; codec-view
+    leaves ``[pods, G, S*F, ...]`` repeat each learner's bit over its F
+    rows; all other leaves (RNG carries, scalars) take ``new``.  With an
+    all-true mask every leaf is ``new`` exactly."""
+    pg, s = tuple(mask.shape[:2]), mask.shape[2]
 
     def sel(new, old):
         shape = tuple(getattr(new, "shape", ()))
-        if len(shape) >= 3 and shape[:3] == lead:
-            return torch.where(_mask_weights(mask, len(shape), torch.bool),
-                               new, old)
-        return new
+        if len(shape) >= 3 and shape[:3] == tuple(mask.shape):
+            m = mask
+        elif (len(shape) >= 3 and shape[:2] == pg and shape[2] != s
+                and shape[2] % s == 0):
+            m = torch.repeat_interleave(mask, shape[2] // s, dim=2)
+        else:
+            return new
+        return torch.where(_mask_weights(m.to(new.device), len(shape),
+                                         torch.bool), new, old)
 
     return tree_map(sel, new_tree, old_tree)
 

@@ -11,33 +11,37 @@ the CPU with ``--device cpu`` (the kernels' plain versions).
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
       --rounds 1 --learners 4 --s 2 --batch 2 --seq 32 --device cpu
 
-The flags are the reference's.  Not ported yet, and refused with
-``NotImplementedError``: ``--ckpt``, ``--faults``, ``--telemetry``,
-``--metrics-out``, ``--trace-out``, ``--profile-dir`` (ROADMAP Queue 1
-item 5), ``--autotune`` (item 8) and ``--fsdp`` above 1 (item 7).
+The flags are the reference's: ``--faults`` trains elastic rounds under a
+seeded fault schedule, ``--telemetry`` adds the device-side statistics,
+``--metrics-out`` writes one ``train_round`` JSONL row per round,
+``--trace-out`` exports the round spans as a Chrome trace,
+``--profile-dir`` writes a ``torch.profiler`` trace there, and ``--ckpt``
+saves the averaged model in the reference's checkpoint format.  Not
+ported yet, and refused with ``NotImplementedError``: ``--autotune``
+(ROADMAP Queue 1 item 8) and ``--fsdp`` above 1 (item 7).
 """
 from __future__ import annotations
 
 import argparse
 import time
+from contextlib import nullcontext
 
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.comm import DEFAULT_BUCKET_BYTES
 from repro_torch.configs import get_config
 from repro_torch.configs.base import HierAvgParams
-from repro_torch.core import HierTopology, init_state, make_hier_round
+from repro_torch.core import (HierTopology, init_state, make_hier_round,
+                              unstack_first)
+from repro_torch.core.simulator import init_template
+from repro_torch.core.theory import level_reduction_seconds
 from repro_torch.data.loader import HierDataLoader
+from repro_torch.elastic import FaultSchedule, level_deadlines
 from repro_torch.models import build
 from repro_torch.models.stubs import make_train_batch
 from repro_torch.optim import sgd, step_decay_lr
-
-_UNPORTED = (("ckpt", "--ckpt", "5"), ("faults", "--faults", "5"),
-             ("telemetry", "--telemetry", "5"),
-             ("metrics_out", "--metrics-out", "5"),
-             ("trace_out", "--trace-out", "5"),
-             ("profile_dir", "--profile-dir", "5"),
-             ("autotune", "--autotune", "8"))
+from repro_torch.telemetry import MetricsLogger, SpanTracer
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -73,20 +77,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--autotune", default=None, metavar="CALIB_JSON",
                     help="cost-aware plan search (not ported: item 8)")
     ap.add_argument("--faults", default=None, metavar="SPEC",
-                    help="elastic fault schedule (not ported: item 5)")
+                    help="elastic membership: a deterministic fault "
+                         "schedule (repro_torch/elastic) driving per-round "
+                         "participation masks, e.g. "
+                         "'crash:0.02/flaky:pod:0.2:3/straggler:0.1:1.5' "
+                         "- seeded by --seed, straggler deadlines priced "
+                         "from the CommModel level walls")
     ap.add_argument("--drop-prob", type=float, default=0.0,
                     help="miss probability the --autotune search bills "
                          "rounds under")
     ap.add_argument("--telemetry", action="store_true",
-                    help="gradient statistics (not ported: item 5)")
+                    help="device-side gradient/divergence statistics in "
+                         "the round (telemetry/gradstats.py; losses bit "
+                         "for bit the same, extra telemetry/* keys)")
     ap.add_argument("--metrics-out", default=None, metavar="JSONL",
-                    help="train_round rows (not ported: item 5)")
+                    help="write one schema-versioned train_round row "
+                         "per round (telemetry/metrics.py JSONL sink)")
     ap.add_argument("--trace-out", default=None, metavar="TRACE_JSON",
-                    help="Chrome trace of round spans (not ported: item 5)")
+                    help="export host-side round spans as a Chrome "
+                         "trace (open in ui.perfetto.dev)")
     ap.add_argument("--profile-dir", default=None,
-                    help="profiler traces (not ported: item 5)")
+                    help="bracket rounds with torch.profiler annotations "
+                         "and write the profiler's trace here")
     ap.add_argument("--ckpt", default=None,
-                    help="save the averaged model (not ported: item 5)")
+                    help="save the averaged model here (the reference's "
+                         "npz + manifest format)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
@@ -96,10 +111,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    for attr, flag, item in _UNPORTED:
-        if getattr(args, attr):
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP "
-                                      f"Queue 1 item {item}")
+    if args.autotune:
+        raise NotImplementedError("--autotune is not ported yet: ROADMAP "
+                                  "Queue 1 item 8")
     if args.fsdp > 1:
         raise NotImplementedError("--fsdp > 1 is not ported yet: ROADMAP "
                                   "Queue 1 item 7")
@@ -130,26 +144,116 @@ def main(argv=None) -> None:
     loader = HierDataLoader(sample, topo=topo, hier=hier,
                             per_learner_batch=args.batch, seed=args.seed,
                             device=device)
-    round_fn = make_hier_round(bundle.loss_fn, optimizer, hier)
+    counts = dict(plan.counts_per_round())
+    template = None
+    if args.faults or args.trace_out or args.profile_dir:
+        template = init_template(bundle.init_train, device)
+    faults = None
+    if args.faults:
+        faults = FaultSchedule(args.faults, topo,
+                               [lvl.name for lvl in plan.levels],
+                               seed=args.seed,
+                               deadlines=level_deadlines(plan, topo,
+                                                         template, None))
+
+        def round_wall(fracs):
+            return sum(
+                counts[lvl.name] * level_reduction_seconds(
+                    lvl, topo, template, None,
+                    drop_prob=1.0 - float(f))[2]
+                for lvl, f in zip(plan.levels, fracs))
+
+    round_fn = make_hier_round(bundle.loss_fn, optimizer, hier,
+                               elastic=faults is not None,
+                               telemetry=args.telemetry or None)
     state = init_state(topo, bundle.init_train, optimizer,
                        torch.Generator(device=device).manual_seed(args.seed),
                        plan=plan, device=device)
 
+    logger = MetricsLogger(args.metrics_out) if args.metrics_out else None
+    tracer = (SpanTracer(profile_dir=args.profile_dir)
+              if (args.trace_out or args.profile_dir) else None)
+    modeled_phases = None
+    if tracer is not None:
+        # the per-level compress/collective split rides as MODELED child
+        # spans priced by the same bill every analytic surface reports
+        modeled_phases = []
+        for lvl in plan.levels:
+            comm_s, compute_s, _ = level_reduction_seconds(
+                lvl, topo, template, None)
+            if counts[lvl.name]:
+                modeled_phases += [
+                    (f"{lvl.name}/compress", compute_s * counts[lvl.name]),
+                    (f"{lvl.name}/collective", comm_s * counts[lvl.name])]
+        tracer.start_profiler()
+
     print(f"Hier-AVG: {topo.describe()}  plan={plan.describe()} "
-          f"arch={cfg.name} device={device}")
+          f"arch={cfg.name} device={device}"
+          + (f"  faults={faults.describe()}" if faults else ""))
     for r in range(args.rounds):
         t0 = time.time()
-        batch = loader.next_round()
-        state, metrics = round_fn(state, batch)
-        # one device->host copy for the round's metrics
-        m = {k: float(v) for k, v in
-             zip(metrics, torch.stack([v.float() for v in
-                                       metrics.values()]).tolist())}
+        drec = None
+        with (tracer.span(f"round[{r}]", args={"round": r})
+              if tracer else nullcontext()):
+            with tracer.span("data") if tracer else nullcontext():
+                batch = loader.next_round()
+            with (tracer.span("device", cat="device")
+                  if tracer else nullcontext()) as drec:
+                if faults is not None:
+                    state, metrics = round_fn(state, batch, faults.active(r))
+                else:
+                    state, metrics = round_fn(state, batch)
+                if tracer:
+                    # bill the device wait to this span, not host_sync
+                    tracer.fence(metrics)
+            with (tracer.span("host_sync")
+                  if tracer else nullcontext()):
+                # one device->host copy for the round's metrics
+                m = {k: float(v) for k, v in
+                     zip(metrics, torch.stack([v.float() for v in
+                                               metrics.values()]).tolist())}
         wall = time.time() - t0
+        if tracer and modeled_phases:
+            tracer.add_modeled_children(drec, modeled_phases)
+        if faults is not None:
+            # host-side schedule mask: no extra device read for fracs
+            fracs = [float(f) for f in faults.active_frac(r)]
+            extra = ("  active=" + "/".join(
+                f"{lvl.name}:{f:.2f}" for lvl, f in zip(plan.levels, fracs))
+                + f" wall~{round_wall(fracs) * 1e3:.2f}ms")
+        else:
+            fracs, extra = None, ""
         print(f"round {r:3d}  loss={m['loss']:.4f} "
               f"acc={m.get('accuracy', float('nan')):.3f} "
               f"({wall:.1f}s, "
-              f"{loader.tokens_per_round * args.seq} tokens)", flush=True)
+              f"{loader.tokens_per_round * args.seq} tokens)" + extra,
+              flush=True)
+        if logger is not None:
+            row = {"round": r, "loss": m["loss"],
+                   "accuracy": m.get("accuracy", float("nan")),
+                   "wall_s": wall, "plan": plan.describe()}
+            row.update({k: v for k, v in m.items()
+                        if k.startswith("telemetry/")})
+            if fracs is not None:
+                row["active_frac"] = {
+                    lvl.name: f for lvl, f in zip(plan.levels, fracs)}
+                row["modeled_wall_s"] = round_wall(fracs)
+            logger.log_row("train_round", **row)
+
+    if tracer is not None:
+        tracer.stop_profiler()
+        if args.trace_out:
+            tracer.export_chrome_trace(args.trace_out)
+            print(f"wrote Chrome trace to {args.trace_out} "
+                  f"(open in ui.perfetto.dev)")
+    if logger is not None:
+        logger.close()
+        print(f"wrote {args.rounds} train_round rows to "
+              f"{args.metrics_out}")
+    if args.ckpt:
+        save_checkpoint(args.ckpt, unstack_first(state.params),
+                        step=int(state.step))
+        print(f"saved averaged model to {args.ckpt}")
 
 
 if __name__ == "__main__":

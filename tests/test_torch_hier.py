@@ -355,17 +355,68 @@ def test_plan_backfills_k1_k2_and_refuses_the_bucket_engine():
 
 def test_unported_trainer_options_raise():
     h, loss, opt = HierAvgParams(), tres.mlp_cls_loss, toptim.sgd(0.1)
-    for kw, item in (({"elastic": True}, "item 5"),
-                     ({"telemetry": True}, "item 5"),
-                     ({"shards": object()}, "item 7"),
-                     ({"constraint_fn": lambda t: t}, "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in ({"shards": object()}, {"constraint_fn": lambda t: t}):
+        with pytest.raises(NotImplementedError, match="item 7"):
             th.make_hier_round(loss, opt, h, **kw)
-    for kw in ({"faults": "drop:0.1"}, {"telemetry": True},
-               {"metrics": object()}, {"comm_model": object()}):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            Simulator(loss, None, None, topo=HierTopology(), hier=h,
-                      device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            th.make_hier_step(loss, opt, h, **kw)
+
+
+@pytest.mark.parametrize("option", ["elastic", "telemetry", "faults",
+                                    "sim_telemetry", "metrics",
+                                    "comm_model"])
+def test_trainer_options_run(option):
+    """The round and Simulator options that came with elastic membership
+    and telemetry: each runs on the CPU and shows in its output."""
+    from repro_torch.core.theory import CommModel
+    from repro_torch.telemetry import MetricsLogger
+    topo = HierTopology(1, 2, 2)
+    h = HierAvgParams(plan="local@2/global@4:topk:0.25", bucket_bytes=0)
+    opt, loss = toptim.sgd(0.1), tres.mlp_cls_loss
+    p_np = _mlp_np_params(6)
+    init = lambda g: convert.tree_from_numpy(p_np, device="cpu")  # noqa
+    batch = _torch_batch(_round_batch(h.batch_dims, topo.shape, seed=8))
+    if option in ("elastic", "telemetry"):
+        kw = {option: True}
+        rnd = th.make_hier_round(loss, opt, h, **kw)
+        s = th.init_state(topo, init, opt, None, plan=h.resolved_plan,
+                          device="cpu")
+        active = np.ones((2,) + topo.shape, bool)
+        active[:, 0, 0, 0] = False
+        s, m = rnd(s, batch, active) if option == "elastic" \
+            else rnd(s, batch)
+        if option == "elastic":
+            assert float(m["active_frac/global"]) == 0.75
+        else:
+            assert "telemetry/div_pre/global" in m
+        assert np.isfinite(float(m["loss"]))
+        return
+    sample = make_classification_task(16, 4, seed=11, noise=0.5,
+                                      device="cpu")
+    kw = {"faults": {"faults": "flaky:0.5"},
+          "sim_telemetry": {"telemetry": True},
+          "metrics": {"metrics": MetricsLogger()},
+          "comm_model": {"comm_model": CommModel(fast_bw=1e9),
+                         "faults": "straggler:0.5"}}[option]
+    sim = Simulator(loss, init, sample, topo=topo, hier=h,
+                    per_learner_batch=B, device="cpu", **kw)
+    res = sim.run(2)
+    assert np.isfinite(res.losses).all()
+    if option == "faults":
+        assert res.active_fracs.shape == (2, 2)
+    elif option == "sim_telemetry":
+        assert res.stats["telemetry/grad_sq_norm"].shape == (2,)
+    elif option == "metrics":
+        rows = list(kw["metrics"].rows("train_round"))
+        assert [r["round"] for r in rows] == [0, 1]
+        assert (res.measured_wall_s > 0).all()
+    else:
+        default = Simulator(loss, init, sample, topo=topo, hier=h,
+                            faults="straggler:0.5", device="cpu")
+        assert sim.faults.deadlines["global"] \
+            > default.faults.deadlines["global"]
+        assert sim.round_wall_estimate((1.0, 1.0)) \
+            > default.round_wall_estimate((1.0, 1.0))
 
 
 # --------------------------------------------------------------------- #

@@ -299,10 +299,73 @@ def test_train_cli_runs_one_round_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--ckpt", "x"], "item 5"), (["--faults", "crash:0.1"], "item 5"),
-    (["--telemetry"], "item 5"), (["--metrics-out", "x"], "item 5"),
-    (["--trace-out", "x"], "item 5"), (["--profile-dir", "x"], "item 5"),
     (["--autotune", "x"], "item 8"), (["--fsdp", "2"], "item 7")])
 def test_train_cli_refuses_unported_flags(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(["--arch", "rwkv6-1.6b", "--device", "cpu", *flag])
+
+
+_CLI = ["--arch", "rwkv6-1.6b", "--rounds", "1", "--learners", "4", "--s",
+        "2", "--batch", "2", "--seq", "16", "--device", "cpu"]
+
+
+def _round_line(out, r=0):
+    return [ln for ln in out.splitlines()
+            if ln.startswith(f"round {r:3d}")][0]
+
+
+@pytest.mark.parametrize("flag", ["--ckpt", "--faults", "--telemetry",
+                                  "--metrics-out", "--trace-out",
+                                  "--profile-dir"])
+def test_train_cli_runs_each_flag(flag, tmp_path, capsys):
+    """Each flag the CLI took over from the reference, alone, on the
+    CPU, with its output checked."""
+    import gzip
+    import json
+
+    from repro.checkpoint import load_checkpoint as jload
+    from repro_torch.checkpoint import checkpoint as tck
+    from repro_torch.telemetry import validate_jsonl
+    path = str(tmp_path / "out")
+    arg = {"--faults": ["crash:0.5/flaky:group:0.5/straggler:0.5"],
+           "--telemetry": []}.get(flag, [path])
+    ttrain.main(_CLI + ["--rounds", "2", flag, *arg])
+    out = capsys.readouterr().out
+    loss = float(_round_line(out).split("loss=")[1].split()[0])
+    assert np.isfinite(loss)
+    if flag == "--ckpt":
+        arrays = tck.load_checkpoint(path)
+        assert sorted(arrays) == sorted(jload(path))
+        assert tck.checkpoint_step(path) == 8          # 2 rounds of 4 steps
+        cfg = get_config("rwkv6-1.6b").reduced()
+        like = build(cfg, device="cpu").init_train(
+            torch.Generator().manual_seed(0))
+        back = tck.restore_checkpoint(path, like)
+        assert all(np.isfinite(x.numpy()).all() for x in leaves(back))
+    elif flag == "--faults":
+        assert "faults=crash:0.5/flaky:group:0.5:1/straggler:0.5:1.5" in out
+        fracs = [_round_line(out, r).split("active=")[1].split()[0]
+                 for r in (0, 1)]
+        assert fracs[0] != fracs[1] or "0.50" in fracs[0], fracs
+        assert "wall~" in _round_line(out, 1)
+    elif flag == "--telemetry":
+        ttrain.main(_CLI + ["--rounds", "2"])
+        plain = capsys.readouterr().out
+        for r in (0, 1):                    # a pure observer: same losses
+            assert _round_line(plain, r).split("(")[0] \
+                == _round_line(out, r).split("(")[0]
+    elif flag == "--metrics-out":
+        rows = validate_jsonl(path)
+        assert [r["round"] for r in rows] == [0, 1]
+        assert f"{rows[0]['loss']:.4f}" == f"{loss:.4f}"
+    elif flag == "--trace-out":
+        with open(path) as f:
+            ev = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+        names = {e["name"] for e in ev}
+        assert {"round[0]", "round[1]", "data", "device", "host_sync",
+                "global/collective"} <= names
+        assert {e["cat"] for e in ev} == {"host", "device", "modeled"}
+    else:
+        with gzip.open(f"{path}/trace.json.gz", "rt") as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert {"round[0]", "device"} <= names
