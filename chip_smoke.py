@@ -6,7 +6,9 @@ reduction through the hand-written top-k kernel, then with the compressed
 reductions (qint8, PowerSGD) on the bucket engine through the hand-written
 qint8 pack/unpack and batched-QR kernels, and Hier-AVG training of the
 RWKV-6 and dense GQA language models at full width through the
-hand-written WKV6 and flash-attention kernels, forward and backward.
+hand-written WKV6 and flash-attention kernels, forward and backward, and
+of the MoE/MLA and M-RoPE decoders in bf16 (with remat) through the
+attention and top-k kernels.
 
   python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -130,7 +132,7 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               chain per learner per step, 3 rounds: losses, eval loss
               (falling), round and part walls, peak memory, exact launch
               counts; the padded default-bucket bytes; 1 round kernel vs
-              plain from one converted state within LM_LOSS_TOL /
+              plain from one state copy within LM_LOSS_TOL /
               LM_PARAM_TOL; a profiled round by kernel class
   13. dense   starcoder2-15b the same way at 1 of 40 layers, default
               HierAvgParams(k1=2, k2=4), 1 x 1024 tokens per learner per
@@ -151,6 +153,35 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               bit, one round after it; (e) launch.train.main on the card
               (reduced rwkv6) with --faults --telemetry --metrics-out
               --trace-out --profile-dir --ckpt; walls and peak memory
+  15. moe     deepseek-v2-lite-16b at published widths (d 2048, MLA
+              kv_lora 512, 64 experts + 2 shared, top-6, vocab 102,400),
+              depth 27 -> MOE_LAYERS (the dense first layer and one MoE
+              layer), bf16 params (the router fp32), P = 4 as (1, 2, 2),
+              HierAvgParams(k1=2, k2=4), 1 x 1024 Markov tokens per
+              learner per step, 3 rounds: losses, aux loss, eval loss
+              (falling), walls, peak, no kernel launch (MLA attends with
+              its own products); 1 round remat off and on from one state
+              copy, bit for bit, both peaks; one TopKReducer fire (ratio
+              0.05) over the three stacked expert leaves of that round's
+              update, kernel and plain bit for bit (3 launches in 3
+              calls), and one leaf's delta [4, 184,549,376] against plain,
+              torch.topk and the bound; a profiled round and the one-hot
+              dispatch/combine products' share of it; launch.train.main
+              on the card (reduced deepseek-v2-lite)
+  16. vlm     qwen2-vl-2b at published widths (d 1536, 12/2 heads of 128,
+              d_ff 8960, tied vocab 151,936, M-RoPE (16, 24, 24)), depth
+              28 -> VLM_LAYERS, bf16 params, remat, P = 4, plan
+              local@2/global@8:topk:0.05 per leaf, 1 x 1024 tokens per
+              learner per step (256 stub patch embeddings + 768 Markov
+              tokens), 3 rounds: exact launches (attention forward twice
+              per layer and step under remat, plus evals; backward once;
+              top-k per leaf per global fire); 1 round kernel vs plain
+              (attention and top-k) within BF16_LOSS_REL and
+              BF16_UPDATE_L2, a control with the labels shifted by one
+              outside both; 1 round remat off and on bit for bit, both
+              peaks; a profiled round; the bf16 attention kernels at the
+              trainer's shape [4, 1024, 12/2, 128] against plain, SDPA
+              and the bound
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -285,7 +316,8 @@ LONG_SLEEP_CYCLES = 1_000_000
 LM_MARKOV_VOCAB = 512       # the Markov chain's token ids (a 65,536^2
                             # chain would take 17 GB)
 LM_ROUNDS = 3
-LM_FULL_DEPTH = {"rwkv6-1.6b": 24, "starcoder2-15b": 40}
+LM_FULL_DEPTH = {"rwkv6-1.6b": 24, "starcoder2-15b": 40,
+                 "deepseek-v2-lite-16b": 27, "qwen2-vl-2b": 28}
 # depth, cut to what fits one card at 4 learners with room to spare:
 # params, grads, new params, top-k EF ref/err and a step's activations under
 # vmap(grad); rwkv6 at 6 layers ran out of the card's 80 GB in its first
@@ -294,7 +326,7 @@ LM_FULL_DEPTH = {"rwkv6-1.6b": 24, "starcoder2-15b": 40}
 RWKV_LAYERS = 4
 DENSE_LAYERS = 1
 LM_RWKV_PLAN = "local@2/global@8:topk:0.05"
-# kernel against plain, 1 round from one converted state: the round's mean
+# kernel against plain, 1 round from one state copy: the round's mean
 # loss within LM_LOSS_TOL relative (per-call differences of ~1e-6 carried
 # through 8 SGD steps; 100x margin), and params within LM_PARAM_TOL of
 # their leaf's largest value except for at most LM_SWAP_FRAC of the
@@ -314,6 +346,37 @@ ELASTIC_PLANS = (TRAIN_PLAN, CODEC_PLANS[0])
 ELASTIC_FAULTS = "crash:0.02/flaky:group:0.2:2/straggler:0.1:1.5"
 ELASTIC_MASK_SHA = ("c6a817faf5c66c8cf4fec59a44b9a2d653e43f30981c9a5275aa4f0"
                     "d29e6a507")
+# phases 15 and 16: deepseek-v2-lite (MoE + MLA) cut to its dense first
+# layer and one MoE layer, and qwen2-vl (M-RoPE, tied vocab) in bf16 with
+# remat and the per-leaf top-k plan, both at published widths
+MOE_ARCH, MOE_LAYERS, MOE_SEQ = "deepseek-v2-lite-16b", 2, 1024
+VLM_ARCH, VLM_SEQ = "qwen2-vl-2b", 1024
+VLM_PLAN = "local@2/global@8:topk:0.05"
+# depth 28 -> VLM_LAYERS: the per-leaf top-k fire holds about 24 bytes per
+# bf16 param per learner (params, EF ref, fp32 EF err old and new, the fp32
+# decompressed and averaged trees, the cast result and its ref clone); at
+# 4 layers (420,558,336 params) the card read a 41.48 GiB peak, 26.5 B a
+# param a learner.  So full depth (1,543,656,960 params) would hold ~164
+# GB, 10 layers (701,332,992) ~74 GB (69 GiB; 69.10 read), and 11 would
+# not fit the 80
+VLM_LAYERS = 10
+# phase 16, kernel against plain in bf16, 1 round from one state copy:
+# the round's mean loss within BF16_LOSS_REL relative (a bf16 logit is
+# rounded to 2^-9 of itself and the attention's P and output again), and
+# the round's update (new - old params, all leaves as one vector) within
+# a relative L2 distance of BF16_UPDATE_L2: each update is rounded to its
+# param's bf16 ulp, so a step below half an ulp vanishes in one run and not
+# in the other, and top-k's selection follows the deltas.  Kernel and
+# plain differ only in the attention's roundings; the two packages on the
+# CPU, whose bf16 roundings differ at every operation, put a reduced
+# deepseek-v2-lite round's update 0.14 apart.  Control: the kernel's round
+# with the labels shifted by one position (an off-by-one in the targets)
+# must fail both.  (A first control, another batch of the same chain,
+# read 0.47 against a first limit of 0.5 on the card: batches of one
+# Markov chain push the update the same way, so neither could tell them
+# apart.)
+BF16_LOSS_REL = 2.0 ** -8
+BF16_UPDATE_L2 = 2.0 ** -2
 
 
 def fail(msg: str) -> None:
@@ -1511,9 +1574,11 @@ def state_pairs(ka, kb):
     return pairs
 
 
-def profile_round(torch, rnd, state, batch, label, classes):
+def profile_round(torch, rnd, state, batch, label, classes, ops=False):
     """Device time of one round by kernel class (torch.profiler's Chrome
-    trace), and the idle share against an unprofiled round's wall."""
+    trace), and the idle share against an unprofiled round's wall; with
+    ``ops``, the PyTorch operators whose kernels took the most time
+    (``key_averages``, which takes seconds on a large trace)."""
     from torch.profiler import ProfilerActivity, profile
 
     rnd(state, batch)
@@ -1551,6 +1616,13 @@ def profile_round(torch, rnd, state, batch, label, classes):
     top = sorted(((v, k) for k, v in totals.items()), reverse=True)[:8]
     print(f"{label} top device kernels (ms per round): " + " | ".join(
         f"{k[:70]} {v / 1e3:.3f}" for v, k in top))
+    if ops:
+        top_ops = sorted(((getattr(ev, "self_device_time_total", 0.0), ev.key)
+                          for ev in prof.key_averages()
+                          if ev.key.startswith("aten::")), reverse=True)[:8]
+        print(f"{label} top operators by their kernels' time (ms per "
+              f"round): " + " | ".join(f"{k} {v / 1e3:.3f}"
+                                       for v, k in top_ops if v > 0))
     # host time in the allocator's runtime and driver calls (a free or a
     # map waits for the device) against the rest of the API
     mem = sum(v for k, v in api.items() if any(w in k for w in (
@@ -2668,7 +2740,8 @@ LM_CLASSES = (
     ("rwkv6_wkv", ("wkv6_",)),
     ("flash_attention", ("attn_",)),
     ("topk_compress", ("topk_",)),
-    ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "sm80_", "ampere")),
+    ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "sm80_", "ampere",
+              "nvjet")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
     ("reduce", ("reduce",)),
     ("softmax", ("softmax",)),
@@ -2688,19 +2761,31 @@ def lm_counters():
             "topk_compress": topk_compress}
 
 
-def lm_setup(torch, arch, n_layers, seq, impl="auto"):
+def lm_setup(torch, arch, n_layers, seq, impl="auto", **opts):
     """The arch at full width cut to ``n_layers``, random init from seed
-    0, and a sampler of seq-token chains of the 512-token Markov task."""
+    0, and a sampler of seq-token chains of the 512-token Markov task;
+    ``opts`` go to ``build`` (param_dtype, remat).  For the VLM, the
+    stub's patch embeddings (``cfg.frontend_tokens`` of them, from the
+    sampler's generator) and their M-RoPE positions go in front of
+    seq - frontend_tokens chain tokens."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_markov_task, markov_lm_batch
     from repro_torch.models import build
+    from repro_torch.models.stubs import mrope_positions, vision_patch_embeds
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
-    bundle = build(cfg, impl=impl, device="cuda")
+    bundle = build(cfg, impl=impl, device="cuda", **opts)
     logits, floor = make_markov_task(LM_MARKOV_VOCAB, device="cuda")
+    nv = cfg.frontend_tokens if cfg.family == "vlm" else 0
 
     def sample(gen, n):
-        return markov_lm_batch(gen, n, seq, logits)
+        batch = markov_lm_batch(gen, n, seq - nv, logits)
+        if nv:
+            batch["vision_embeds"] = vision_patch_embeds(gen, n, nv,
+                                                         cfg.d_model)
+            batch["positions"] = mrope_positions(n, nv, seq - nv,
+                                                 device="cuda")
+        return batch
 
     return cfg, bundle, sample, floor
 
@@ -2761,8 +2846,6 @@ def lm_phase(torch, *, label, arch, n_layers, hier, batch, seq, rounds,
     averaged model after each round on 4 fixed chains; then the round's
     parts, 1 round kernel-vs-plain from one converted state, and a
     profiled round.  Returns the launch counts of the trained rounds."""
-    from repro_torch.convert import (train_state_from_jax,
-                                     train_state_to_numpy)
     from repro_torch.core.hier_avg import init_state, make_hier_round
     from repro_torch.core.topology import HierTopology, unstack_first
     from repro_torch.data.loader import HierDataLoader
@@ -2819,9 +2902,9 @@ def lm_phase(torch, *, label, arch, n_layers, hier, batch, seq, rounds,
                      for lvl in plan.levels)
           + f" peak_mem_gib={peak:.2f} launches={launches}")
 
-    # kernel against plain: 1 round from one converted state, same batch
+    # kernel against plain: 1 round from one state copy, same batch
     rb = loader.next_round()
-    np_state = train_state_to_numpy(state)
+    cpu_state = state_to(torch, state, "cpu")
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -2829,7 +2912,7 @@ def lm_phase(torch, *, label, arch, n_layers, hier, batch, seq, rounds,
     for impl in ("kernel", "plain"):
         _, b_impl, _, _ = lm_setup(torch, arch, n_layers, seq, impl=impl)
         r_impl = make_hier_round(b_impl.loss_fn, sgd(0.1), hier)
-        st = train_state_from_jax(np_state, device="cuda")
+        st = state_to(torch, cpu_state, "cuda")
         t0 = time.perf_counter()
         st, m = r_impl(st, rb)
         torch.cuda.synchronize()
@@ -2846,15 +2929,15 @@ def lm_phase(torch, *, label, arch, n_layers, hier, batch, seq, rounds,
              f"{LM_LOSS_TOL}), {beyond} of {total} params beyond "
              f"{LM_PARAM_TOL} of their leaf's max (limit "
              f"{LM_SWAP_FRAC} of them)")
-    print(f"{label} kernel vs plain: 1 round from one converted state: "
+    print(f"{label} kernel vs plain: 1 round from one state copy: "
           f"loss {lk:.6f} vs {lp:.6f} (rel {loss_rel:.3e}, limit "
           f"{LM_LOSS_TOL}); params max rel {worst:.3e}, {beyond} of {total} "
           f"coordinates beyond {LM_PARAM_TOL} of their leaf's max (limit "
           f"{LM_SWAP_FRAC} of them); round_wall_ms kernel={wk:.1f} "
           f"plain={wp:.1f}")
     del out, pk, pp
-    st = train_state_from_jax(np_state, device="cuda")
-    del np_state
+    st = state_to(torch, cpu_state, "cuda")
+    del cpu_state
     gc.collect()
     profile_round(torch, rnd, st, rb, f"{label} (one round)", LM_CLASSES)
     del st, rb
@@ -2926,6 +3009,468 @@ def phase_lm(torch):
           f"launches")
     return rwkv, dense
 
+
+
+# --------------------------------------------------------------------- #
+# phases 15 and 16: MoE/MLA and bf16 remat M-RoPE training
+
+
+def state_to(torch, state, device):
+    """A copy of a TrainState with its float tensors on ``device`` (bf16
+    kept as it is: convert.train_state_to_numpy has no bf16 type); the
+    reducers' integer RNG carries stay where they are."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.to(device, copy=True)
+                    if isinstance(x, torch.Tensor) and x.is_floating_point()
+                    else x, state)
+
+
+def bf16_rounds(torch, label, bundle, hier, loader, eval_batch, counters,
+                rounds, floor):
+    """Train ``rounds`` rounds at P = 4 as (1, 2, 2), sgd(0.1), from seed
+    0, the launch counts set to 0 just before and read just after; the
+    eval loss must fall.  Returns (state, the last round batch,
+    launches)."""
+    from repro_torch.core.hier_avg import init_state, make_hier_round
+    from repro_torch.core.topology import HierTopology, unstack_first
+    from repro_torch.optim import sgd
+    from repro_torch.tree import leaves
+
+    rnd = make_hier_round(bundle.loss_fn, sgd(0.1), hier)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(HierTopology(1, 2, 2), bundle.init_train, sgd(0.1),
+                       torch.Generator(device="cuda").manual_seed(0),
+                       plan=hier.resolved_plan, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    zero_counts(counters)
+    walls, losses, evals, aux = [], [], [], []
+    for _ in range(rounds):
+        rb = loader.next_round()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = rnd(state, rb)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        aux.append(m["aux_loss"].item() if "aux_loss" in m else 0.0)
+        with torch.no_grad():
+            evals.append(bundle.loss_fn(unstack_first(state.params),
+                                        eval_batch)[0].item())
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (np_isfinite(losses) and np_isfinite(evals)
+            and np_isfinite(aux)):
+        fail(f"{label}: losses not finite: {losses} {evals} {aux}")
+    if not evals[-1] < evals[0]:
+        fail(f"{label}: eval loss did not fall: {evals}")
+    n_params = sum(p[0, 0, 0].numel() for p in leaves(state.params))
+    dtypes = sorted({str(p.dtype)[6:] for p in leaves(state.params)})
+    print(f"{label} ({n_params} params per learner, {dtypes}) P=4 "
+          f"(1, 2, 2) plan {hier.resolved_plan.describe()} sgd(0.1), "
+          f"{LM_MARKOV_VOCAB}-token Markov chain (floor {floor:.4f} nats): "
+          f"init_s={init_s:.2f} rounds={rounds} train_loss={fmt(losses)} "
+          f"aux_loss={fmt(aux)} eval_loss={fmt(evals)} round_wall_ms="
+          f"{fmt(walls)} peak_mem_gib={peak:.2f} launches={launches}")
+    return state, rb, launches
+
+
+def one_round(torch, rnd, cpu_state, rb):
+    """One round from a CPU copy of a state, on the card: (the new state,
+    metrics, wall ms, peak GiB since the copy went up)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st = state_to(torch, cpu_state, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, m = rnd(st, rb)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return st, m, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def remat_identity(torch, label, make_round, cpu_state, rb, on=None):
+    """One round with remat off and on from the same state copy: params,
+    reducer state and metrics bit for bit; both peaks.  ``on``: the
+    remat-on round's (CPU state, metrics, wall, peak) where the caller
+    already ran it."""
+    out = {True: on} if on is not None else {}
+    for remat in (False, True):
+        if remat in out:
+            continue
+        st, m, wall, peak = one_round(torch, make_round(remat), cpu_state,
+                                      rb)
+        out[remat] = (state_to(torch, st, "cpu"), m, wall, peak)
+        del st
+    (sa, ma, wa, pa), (sb, mb, wb, pb) = out[False], out[True]
+    pairs = state_pairs(sa, sb) + [(ma[k].cpu(), mb[k].cpu()) for k in ma]
+    bad = sum(not same_bits(torch, a, b) for a, b in pairs)
+    if bad:
+        fail(f"{label}: remat on and off differ in {bad} of {len(pairs)} "
+             f"state leaves and metrics")
+    print(f"{label} remat: 1 round from one state copy, remat off and on "
+          f"bit-identical ({len(pairs)} state leaves and metrics); "
+          f"round_wall_ms off={wa:.1f} on={wb:.1f}; peak_mem_gib "
+          f"off={pa:.2f} on={pb:.2f}")
+    return pa, pb, sb
+
+
+def update_rel_l2(torch, new, want, old):
+    """||(new - old) - (want - old)|| / ||want - old|| over all leaves as
+    one vector (lists of CPU tensors), summed leaf by leaf on the card in
+    fp64: the relative distance of a round's update from another's."""
+    num = den = 0.0
+    for a, b, o in zip(new, want, old):
+        o = o.cuda().double()
+        ua, ub = a.cuda().double() - o, b.cuda().double() - o
+        num += float((ua - ub).square().sum())
+        den += float(ub.square().sum())
+        del o, ua, ub
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def moe_dispatch_ms(torch, flush, b, t, e, c, d):
+    """Device time of the one-hot dispatch and combine products of one MoE
+    layer (x_ecd = disp^T x, y_t = comb y_ecd), forward and backward, at
+    the trainer's shapes (the learners folded into b), bf16."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    slot = torch.randint(0, t, (b, 1, e, c), generator=g, device="cuda")
+    disp = torch.zeros((b, t, e, c), dtype=torch.bfloat16, device="cuda")
+    disp.scatter_(1, slot, 1.0)
+    comb = (disp * torch.rand(disp.shape, generator=g, device="cuda").to(
+        torch.bfloat16)).requires_grad_()
+    xt = torch.randn((b, t, d), generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    y = torch.randn((b, e, c, d), generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    gx = torch.randn((b, e, c, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    gy = torch.randn((b, t, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+
+    def fwd_bwd():
+        x_ecd = torch.einsum("btec,btd->becd", disp, xt)
+        yt = torch.einsum("btec,becd->btd", comb, y)
+        torch.autograd.grad((x_ecd, yt), (xt, y, comb), (gx, gy))
+
+    return time_ms(torch, fwd_bwd, flush, 5)
+
+
+def kernel_sum_ms(kernels) -> float:
+    return sum(k[2] for k in kernels) / 1e3 if kernels else float("nan")
+
+
+def phase_moe(torch):
+    """Phase 15: deepseek-v2-lite-16b (MoE + MLA) at published widths."""
+    from repro_torch.comm import reduce_with
+    from repro_torch.comm.sparse import TopKReducer
+    from repro_torch.configs.base import HierAvgParams
+    from repro_torch.core.hier_avg import make_hier_round
+    from repro_torch.core.topology import average_over
+    from repro_torch.data.loader import HierDataLoader
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.topk_compress import topk_compress_many
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import sgd
+    from repro_torch.tree import leaves
+
+    label = "phase 15 train deepseek-v2-lite-16b"
+    counters = lm_counters()
+    hier = HierAvgParams(k1=2, k2=4)
+    cfg, bundle, sample, floor = lm_setup(
+        torch, MOE_ARCH, MOE_LAYERS, MOE_SEQ, param_dtype=torch.bfloat16)
+    loader = HierDataLoader(sample, topo=_topo(), hier=hier,
+                            per_learner_batch=1, seed=0, device="cuda")
+    eval_batch = sample(torch.Generator(device="cuda").manual_seed(1), 4)
+    print(f"{label}: depth {cfg.n_layers} of {LM_FULL_DEPTH[MOE_ARCH]} "
+          f"({cfg.first_k_dense} dense, then MoE: {cfg.n_experts} experts "
+          f"+ {cfg.n_shared_experts} shared, top-{cfg.top_k}, capacity "
+          f"{cfg.capacity_factor}; MLA kv_lora {cfg.kv_lora_rank}), widths "
+          f"as published, bf16 params (fp32 router), 1 x {MOE_SEQ} tokens "
+          f"per learner per step")
+    state, rb, launches = bf16_rounds(
+        torch, label, bundle, hier, loader, eval_batch, counters, LM_ROUNDS,
+        floor)
+    want = {k: 0 for k in launches}
+    if launches != want:
+        fail(f"{label}: launches {launches} != {want} (MLA attends with "
+             f"its own products; the mean plan runs no codec)")
+    parts = lm_parts(torch, bundle, hier.resolved_plan, state, rb)
+    print(f"{label} parts: step_wall_ms={parts['step']:.3f} "
+          + " ".join(f"{k}_fire_ms={v:.3f}" for k, v in parts.items()
+                     if k != "step"))
+
+    # remat off and on, one round from one state copy
+    cpu_state = state_to(torch, state, "cpu")
+    rb2 = loader.next_round()
+
+    def make_round(remat):
+        _, b, _, _ = lm_setup(torch, MOE_ARCH, MOE_LAYERS, MOE_SEQ,
+                              param_dtype=torch.bfloat16, remat=remat)
+        return make_hier_round(b.loss_fn, sgd(0.1), hier)
+
+    del state
+    *peaks, after = remat_identity(torch, label, make_round, cpu_state, rb2)
+
+    # one top-k fire (ratio 0.05) over the stacked expert leaves, of the
+    # round's update (the EF reference the params before the round, the
+    # params after it): kernel against plain, bit for bit
+    def expert_leaves(state):
+        return {k: v.cuda() for k, v in
+                state.params["layers"]["ffn"]["experts"].items()}
+
+    before, now = expert_leaves(cpu_state), expert_leaves(after)
+    del after
+    axes = hier.resolved_plan.levels[-1].axes
+    outs, fire_wall = {}, {}
+    for impl in ("auto", "plain"):
+        red = TopKReducer(TOPK_RATIO, impl=impl)
+        ef = red.init_state(before)
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        avg, ef = reduce_with(red, lambda t, cf=None: average_over(t, axes),
+                              now, ef)
+        torch.cuda.synchronize()
+        fire_wall[impl] = (time.perf_counter() - t0) * 1e3
+        if impl == "auto":
+            fire_launches = read_counts(counters)
+        outs[impl] = [x.cpu() for x in leaves(avg) + leaves(ef.err)]
+        del avg, ef
+        gc.collect()
+        torch.cuda.empty_cache()
+    bad = sum(not same_bits(torch, a, b) for a, b in zip(outs["auto"],
+                                                         outs["plain"]))
+    if bad:
+        fail(f"{label} top-k fire: kernel and plain differ in {bad} of "
+             f"{len(outs['auto'])} averaged and EF leaves")
+    del outs
+    n_exp = len(now)
+    if (fire_launches["topk_compress"], fire_launches["topk_compress_calls"]
+            ) != (n_exp, n_exp):
+        fail(f"{label} top-k fire launches {fire_launches}: want {n_exp} "
+             f"segments in {n_exp} calls (each leaf over 1 GiB alone)")
+    # one expert leaf's fp32 delta rows [4, n], as the fire selects them
+    x = (now["w_up"].float() - before["w_up"].float()).reshape(4, -1)
+    del now, before
+    n = x.shape[1]
+    k = TopKReducer(TOPK_RATIO).k_for(n)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    (kv, ki), = topk_compress_many([x], [k])
+    pv, pi = kref.topk_compress_plain(x, k)
+    if not (same_bits(torch, kv, pv) and torch.equal(ki, pi)):
+        fail(f"{label}: top-k of the expert leaf [4, {n}] differs from "
+             f"plain")
+    zeros = int((x == 0).sum())
+    del kv, ki, pv, pi
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaf = dict(
+        ms=time_ms(torch, lambda: topk_compress_many([x], [k]), flush, 5),
+        plain_ms=time_ms(torch, lambda: kref.topk_compress_plain(x, k),
+                         flush, 2),
+        library_ms=time_ms(torch, lambda: torch.topk(x.abs(), k, dim=1),
+                           flush, 3),
+        bound_ms=(x.numel() * 4 + 4 * k * 8) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
+    del x
+    print(f"{label} top-k fire over the {n_exp} stacked expert leaves "
+          f"(ratio {TOPK_RATIO}, 4 rows each, of the round's update): "
+          f"kernel and plain bit-identical; launches {fire_launches}; "
+          f"fire_wall_ms kernel={fire_wall['auto']:.1f} plain="
+          f"{fire_wall['plain']:.1f}; one leaf's delta [4, {n}] k={k} "
+          f"({zeros} zero coordinates; L2 flushed): kernel_ms="
+          f"{fmt_ms(leaf['ms'])} plain_ms={fmt_ms(leaf['plain_ms'])} "
+          f"torch_topk_ms={fmt_ms(leaf['library_ms'])} bound_ms="
+          f"{leaf['bound_ms']:.4f} (bytes: x read once, k values and "
+          f"indices written)")
+
+    # where the round's device time goes, and the dispatch/combine share
+    rnd_k = make_round(False)
+    st = state_to(torch, cpu_state, "cuda")
+    del cpu_state
+    kernels = profile_round(torch, rnd_k, st, rb2, f"{label} (one round)",
+                            LM_CLASSES, ops=True)
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    capacity = max(1, math.ceil(MOE_SEQ * cfg.top_k / cfg.n_experts
+                                * cfg.capacity_factor))
+    disp = moe_dispatch_ms(torch, flush, 4, MOE_SEQ, cfg.n_experts,
+                           capacity, cfg.d_model)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    per_round = disp * n_moe * hier.steps_per_round
+    total = kernel_sum_ms(kernels)
+    print(f"{label} dispatch and combine products (B4 T{MOE_SEQ} "
+          f"E{cfg.n_experts} C{capacity} d{cfg.d_model} bf16, forward and "
+          f"backward, L2 flushed): {fmt_ms(disp)} ms per MoE layer and "
+          f"step, {per_round:.3f} ms per round ({n_moe} MoE layers x "
+          f"{hier.steps_per_round} steps), {per_round / total:.4f} of the "
+          f"profiled round's kernel sum {total:.3f} ms")
+
+    # the training CLI on the card (reduced, as the reference's always is)
+    t0 = time.perf_counter()
+    train_cli.main(["--arch", MOE_ARCH, "--rounds", "2", "--learners", "4",
+                    "--s", "2", "--batch", "2", "--seq", "64"])
+    print(f"phase 15 cli: launch.train.main --arch {MOE_ARCH} (reduced) "
+          f"--rounds 2 --learners 4 --seq 64 on the card in "
+          f"{time.perf_counter() - t0:.2f}s")
+    return fire_launches, leaf, peaks
+
+
+def _topo():
+    from repro_torch.core.topology import HierTopology
+    return HierTopology(1, 2, 2)
+
+
+def vlm_attn_times(torch, cfg, flush):
+    """The attention kernels at the trainer's qwen2-vl shape (the learners
+    folded into B), bf16: forward and backward against plain, SDPA and
+    the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_fwd)
+    b, s, hq, hkv, d = 4, VLM_SEQ, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    q, k, v, do = attn_inputs(torch, b, s, hq, hkv, d, torch.bfloat16, 90)
+    o, lse = flash_attention_fwd(q, k, v)
+    (fb, fby, _, fbasis), (bb, bby, _, bbasis) = attn_bound(
+        b, s, hq, hkv, d, 0, 2)
+    t = dict(
+        ms=time_ms(torch, lambda: flash_attention_fwd(q, k, v), flush, 10),
+        plain_ms=time_ms(torch, lambda: kref.flash_attention_plain(q, k, v),
+                         flush, 3),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True), flush, 10),
+        bound_ms=fb, bound_by=fby,
+        bwd_ms=time_ms(torch, lambda: flash_attention_backward(
+            q, k, v, o, lse, do), flush, 5),
+        bwd_plain_ms=time_ms(torch, lambda: kref.
+                             flash_attention_backward_plain(
+                                 q, k, v, o, lse, do), flush, 2),
+        bwd_library_ms=time_ms(torch, sdpa_backward(torch, F, q, k, v, do),
+                               flush, 3),
+        bwd_bound_ms=bb, bwd_bound_by=bby)
+    print(f"phase 16 attention at qwen2-vl's training shape (B{b} S{s} "
+          f"Hq{hq} Hkv{hkv} D{d} causal bf16, L2 flushed): fwd_ms="
+          f"{fmt_ms(t['ms'])} plain_ms={fmt_ms(t['plain_ms'])} sdpa_ms="
+          f"{fmt_ms(t['library_ms'])} bound_ms={fb:.4f} ({fby}, {fbasis}); "
+          f"bwd_ms={fmt_ms(t['bwd_ms'])} plain_ms="
+          f"{fmt_ms(t['bwd_plain_ms'])} sdpa_bwd_ms="
+          f"{fmt_ms(t['bwd_library_ms'])} bound_ms={bb:.4f} ({bby}, "
+          f"{bbasis})")
+    return t
+
+
+def phase_vlm(torch):
+    """Phase 16: qwen2-vl-2b at published widths, bf16, remat, M-RoPE."""
+    from repro_torch.configs.base import HierAvgParams
+    from repro_torch.core.hier_avg import make_hier_round
+    from repro_torch.data.loader import HierDataLoader
+    from repro_torch.optim import sgd
+    from repro_torch.tree import leaves
+
+    label = "phase 16 train qwen2-vl-2b"
+    counters = lm_counters()
+    hier = HierAvgParams(plan=VLM_PLAN, bucket_bytes=0)
+    opts = dict(param_dtype=torch.bfloat16, remat=True)
+    cfg, bundle, sample, floor = lm_setup(torch, VLM_ARCH, VLM_LAYERS,
+                                          VLM_SEQ, **opts)
+    loader = HierDataLoader(sample, topo=_topo(), hier=hier,
+                            per_learner_batch=1, seed=0, device="cuda")
+    eval_batch = sample(torch.Generator(device="cuda").manual_seed(1), 4)
+    print(f"{label}: depth {cfg.n_layers} of {LM_FULL_DEPTH[VLM_ARCH]}, "
+          f"widths as published (d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, tied vocab {cfg.vocab_size}, M-RoPE sections "
+          f"{cfg.mrope_sections}), bf16 params, remat, 1 x {VLM_SEQ} "
+          f"tokens per learner per step ({cfg.frontend_tokens} stub patch "
+          f"embeddings + {VLM_SEQ - cfg.frontend_tokens} chain tokens)")
+    state, rb, launches = bf16_rounds(
+        torch, label, bundle, hier, loader, eval_batch, counters, LM_ROUNDS,
+        floor)
+    steps = hier.steps_per_round * LM_ROUNDS
+    sizes = lm_leaf_sizes(cfg)
+    want = {"flash_attention_forward": cfg.n_layers * (2 * steps
+                                                       + LM_ROUNDS),
+            "flash_attention_backward": cfg.n_layers * steps,
+            "topk_compress": len(sizes) * LM_ROUNDS,
+            "topk_compress_calls": len(topk_groups(sizes, 4)) * LM_ROUNDS,
+            "rwkv6_wkv_forward": 0, "rwkv6_wkv_backward": 0}
+    if launches != want:
+        fail(f"{label}: launches {launches} != {want} (layers x (2 x "
+             f"steps under remat + evals), layers x steps, leaves and "
+             f"grouped calls x global fires)")
+    parts = lm_parts(torch, bundle, hier.resolved_plan, state, rb)
+    print(f"{label} parts: step_wall_ms={parts['step']:.3f} "
+          + " ".join(f"{k}_fire_ms={v:.3f}" for k, v in parts.items()
+                     if k != "step"))
+    cpu_state = state_to(torch, state, "cpu")
+    del state
+    rb2 = loader.next_round()
+
+    def make_round(remat, impl="auto"):
+        _, b, _, _ = lm_setup(torch, VLM_ARCH, VLM_LAYERS, VLM_SEQ,
+                              impl=impl, param_dtype=torch.bfloat16,
+                              remat=remat)
+        plan = hier.resolved_plan if impl == "auto" \
+            else plain_plan(hier.resolved_plan)
+        return make_hier_round(b.loss_fn, sgd(0.1), hier, plan=plan)
+
+    # kernel against plain (attention and top-k), one round from one state
+    # copy, at the bf16 limits; a control on another batch must fail them
+    old = leaves(cpu_state.params)
+    news, losses, walls = {}, {}, {}
+    shifted = dict(rb2, labels=rb2["labels"].roll(1, dims=-1))
+    for tag, impl, batch in (("kernel", "auto", rb2), ("plain", "plain", rb2),
+                             ("control", "auto", shifted)):
+        st, m, walls[tag], peak = one_round(torch, make_round(True, impl),
+                                            cpu_state, batch)
+        if tag == "kernel":             # remat's "on" round, kept
+            remat_on = (state_to(torch, st, "cpu"), m, walls[tag], peak)
+            news[tag] = leaves(remat_on[0].params)
+        else:
+            news[tag] = [p.cpu() for p in leaves(st.params)]
+        losses[tag] = m["loss"].item()
+        del st, m
+    def rel(tag):
+        return abs(losses[tag] - losses["plain"]) / abs(losses["plain"])
+
+    dist = update_rel_l2(torch, news["kernel"], news["plain"], old)
+    ctrl = update_rel_l2(torch, news["control"], news["plain"], old)
+    del news
+    print(f"{label} kernel vs plain (attention and top-k): 1 round from one "
+          f"state copy: loss {losses['kernel']:.6f} vs {losses['plain']:.6f} "
+          f"(rel {rel('kernel'):.3e}, limit {BF16_LOSS_REL:.3e}); the "
+          f"round's update rel L2 {dist:.4f} (limit {BF16_UPDATE_L2}); "
+          f"control, the labels shifted by one: loss rel "
+          f"{rel('control'):.3e}, update {ctrl:.4f} (must fail both); "
+          f"round_wall_ms kernel={walls['kernel']:.1f} "
+          f"plain={walls['plain']:.1f}")
+    if rel("kernel") > BF16_LOSS_REL or dist > BF16_UPDATE_L2:
+        fail(f"{label} kernel vs plain round outside the bf16 limits")
+    if rel("control") <= BF16_LOSS_REL or ctrl <= BF16_UPDATE_L2:
+        fail(f"{label}: the shifted-label control is within a limit")
+
+    *peaks, _ = remat_identity(torch, label, make_round, cpu_state, rb2,
+                               on=remat_on)
+    del remat_on
+    st = state_to(torch, cpu_state, "cuda")
+    del cpu_state
+    profile_round(torch, make_round(True), st, rb2, f"{label} (one round)",
+                  LM_CLASSES, ops=True)
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    attn = vlm_attn_times(torch, cfg, flush)
+    return launches, attn, peaks
 
 
 # --------------------------------------------------------------------- #
@@ -3278,36 +3823,70 @@ def main() -> None:
 
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
-    kern = phase_kernel(torch, kops, kref)
-    cfg, _, params, engine, launches = phase_serve(torch, np)
-    phase_profile(torch, np, cfg, params, engine)
-    phase_logits(torch, np, cfg, params, engine)
+    seconds = {"build": round(build_s, 1)}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    kern = timed("3", phase_kernel, torch, kops, kref)
+    cfg, _, params, engine, launches = timed("4", phase_serve, torch, np)
+    timed("4b", phase_profile, torch, np, cfg, params, engine)
+    timed("5", phase_logits, torch, np, cfg, params, engine)
     # the engine's timing wrappers close over its bound methods, a cycle
     # that keeps the 32 GB of weights alive until the collector runs
     del cfg, params, engine, _
     gc.collect()
     torch.cuda.empty_cache()
 
-    topk = phase_topk(torch)
-    topk_launches, topk_calls, phase7_walls = phase_train(torch)
+    topk = timed("6", phase_topk, torch)
+    topk_launches, topk_calls, phase7_walls = timed("7", phase_train, torch)
     torch.cuda.empty_cache()
-    pack, unpack, qr = phase_codecs(torch)
-    codec_launches = phase_codec_train(torch)
+    pack, unpack, qr = timed("8", phase_codecs, torch)
+    codec_launches = timed("9", phase_codec_train, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    wkv_fwd, wkv_bwd = phase_wkv(torch)
-    attn_fwd, attn_bwd = phase_attention(torch)
+    wkv_fwd, wkv_bwd = timed("10", phase_wkv, torch)
+    attn_fwd, attn_bwd = timed("11", phase_attention, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    rwkv_launches, dense_launches = phase_lm(torch)
+    rwkv_launches, dense_launches = timed("12-13", phase_lm, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    elastic = phase_elastic(torch, phase7_walls)
+    elastic = timed("14", phase_elastic, torch, phase7_walls)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_fire, expert_leaf, _ = timed("15", phase_moe, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm, vlm_attn, _ = timed("16", phase_vlm, torch)
+    print(f"phase seconds: {json.dumps(seconds)}")
+    # phase 16's bf16 launches and times at qwen2-vl's shape beside the
+    # attention kernels; phase 15's expert-leaf fire and phase 16's
+    # launches beside top-k
+    later = {
+        "flash_attention_forward": {
+            "bf16_launches": vlm["flash_attention_forward"],
+            **{f"bf16_{k}": vlm_attn[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        "flash_attention_backward": {
+            "bf16_launches": vlm["flash_attention_backward"],
+            **{f"bf16_{k}": vlm_attn[f"bwd_{k}"] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        "topk_compress": {
+            "bf16_launches": vlm["topk_compress"],
+            "bf16_grouped_calls": vlm["topk_compress_calls"],
+            "expert_fire_launches": moe_fire["topk_compress"],
+            **{f"expert_leaf_{k}": v for k, v in expert_leaf.items()}}}
 
     def entry(name, source, replaces, launches, numbers):
-        # phase 14's launches beside each kernel its path runs
+        # phase 14's launches beside each kernel its path runs, and
+        # phases 15 and 16's
         extra = ({"elastic_launches": elastic[name]} if name in elastic
                  else {})
+        extra.update(later.get(name, {}))
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source}",
                 "replaces": replaces, "launches": launches, **numbers,

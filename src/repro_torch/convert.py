@@ -29,7 +29,9 @@ from repro_torch.comm.lowrank import LowRankState
 from repro_torch.comm.sparse import EFState, rng_carry
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.hier_avg import TrainState
-from repro_torch.models.transformer import unsupported_reason
+from repro_torch.models.transformer import (_split_layers,
+                                            serve_unsupported_reason,
+                                            train_unsupported_reason)
 
 
 def _to_tensor(a: Any, device) -> torch.Tensor:
@@ -141,7 +143,7 @@ def _leaves(tree: Mapping[str, Any], prefix: str = ""
 def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig, *,
                     device="cuda") -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays -> the port's state dict."""
-    reason = unsupported_reason(cfg)
+    reason = serve_unsupported_reason(cfg)
     if reason:
         raise NotImplementedError(f"{cfg.name}: {reason}")
     out: Dict[str, torch.Tensor] = {}
@@ -164,13 +166,25 @@ def train_params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig, *,
     """The reference's LM parameter pytree (numpy leaves) -> the port's
     training tree (``ModelBundle.init_train``'s layout): the same keys and
     stacked ``[L, ...]`` layer leaves, so the leaves come in
-    ``jax.tree.leaves`` order."""
-    if cfg.family != "ssm":
-        reason = unsupported_reason(cfg)
+    ``jax.tree.leaves`` order.  Each stack's leaves must be as deep as
+    the config's: ``layers`` holds the main stack and ``layers_dense`` the
+    dense layers before a MoE stack (``first_k_dense``)."""
+    if cfg.family == "ssm":
+        depth = {"layers": cfg.n_layers}
+    else:
+        reason = train_unsupported_reason(cfg)
         if reason:
             raise NotImplementedError(f"{cfg.name}: {reason}")
-    for path, leaf in _leaves(np_params.get("layers", {}), "layers."):
-        if np.shape(leaf)[:1] != (cfg.n_layers,):
-            raise ValueError(f"{path}: stacked {np.shape(leaf)}, config has "
-                             f"{cfg.n_layers} layers")
+        n_pre, n_main = _split_layers(cfg)
+        depth = {"layers": n_main, "layers_dense": n_pre}
+    for key, n in depth.items():
+        if n == 0:
+            if key in np_params:
+                raise ValueError(f"{key}: present, config has no such "
+                                 f"layers")
+            continue
+        for path, leaf in _leaves(np_params.get(key, {}), key + "."):
+            if np.shape(leaf)[:1] != (n,):
+                raise ValueError(f"{path}: stacked {np.shape(leaf)}, config "
+                                 f"has {n} layers there")
     return tree_from_numpy(np_params, device=device)

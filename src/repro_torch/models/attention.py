@@ -1,12 +1,14 @@
-"""GQA attention (PyTorch port of the GQA half of
-``repro/models/attention.py``).
+"""GQA and MLA attention (PyTorch port of ``repro/models/attention.py``).
 
 Ported: the training attention (``full_attention``, which dispatches to
 ``kernels.ops.flash_attention`` under the reference's condition, and
-``gqa_attention``), the masked attention core, GQA projections, and the
+``gqa_attention``), the masked attention core, GQA projections, the
 paged cache (``init_paged_kv``, ``paged_slot_coords``,
-``gqa_decode_paged``, ``gqa_prefill_paged_chunk``).  The dense-cache
-decode and MLA come with later slices (ROADMAP Queue 1).
+``gqa_decode_paged``, ``gqa_prefill_paged_chunk``), and MLA for training
+(``mla_params``, ``mla_attention``), which attends with its own products
+in the reference and so in the port.  The dense-cache decode and MLA's
+caches and decode come with serving (ROADMAP Queue 1 item 6).  Products
+take the promoted type of their operands, as the reference's do.
 
 GQA projections are leaves named as the reference's: attributes of the
 serving path's :class:`GQA` module, or keys of the training path's dict
@@ -24,7 +26,8 @@ from torch import nn
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import (apply_rope, dense_init, mm,
+                                       rmsnorm, rmsnorm_init)
 
 NEG_INF = -1.0e30
 
@@ -76,6 +79,11 @@ def masked_attention(q, k, v, *, window: int = 0, q_offset: int = 0,
     t = k.shape[1]
     m = causal_mask(s, t, window, q_offset, device=q.device)[None, None]
     return _gqa_scores_attend(q, k, v, m.expand(b, 1, s, t), scale)
+
+
+def _pick_q_chunk(t: int) -> int:
+    """Bound the per-chunk score tensor to ~4M elements per (b, head)."""
+    return max(64, min(1024, (1 << 22) // max(t, 1)))
 
 
 def full_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -144,9 +152,9 @@ def _w(p, name: str) -> torch.Tensor:
 
 def _project_qkv(p, x, n_heads, n_kv_heads, head_dim):
     b, s, _ = x.shape
-    q = (x @ _w(p, "wq")).reshape(b, s, n_heads, head_dim)
-    k = (x @ _w(p, "wk")).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ _w(p, "wv")).reshape(b, s, n_kv_heads, head_dim)
+    q = mm(x, _w(p, "wq")).reshape(b, s, n_heads, head_dim)
+    k = mm(x, _w(p, "wk")).reshape(b, s, n_kv_heads, head_dim)
+    v = mm(x, _w(p, "wv")).reshape(b, s, n_kv_heads, head_dim)
     return q, k, v
 
 
@@ -160,8 +168,8 @@ def gqa_attention(p: Mapping[str, torch.Tensor], x, cos, sin, *,
         q = apply_rope(q, cos[:, :, None], sin[:, :, None])
         k = apply_rope(k, cos[:, :, None], sin[:, :, None])
     out = full_attention(q, k, v, causal=causal, window=window, impl=impl)
-    return out.reshape(x.shape[0], x.shape[1], n_heads * head_dim) \
-        @ _w(p, "wo")
+    return mm(out.reshape(x.shape[0], x.shape[1], n_heads * head_dim),
+              _w(p, "wo"))
 
 
 # --------------------------- paged cache ------------------------------ #
@@ -257,3 +265,78 @@ def gqa_prefill_paged_chunk(p: GQA, x, pages: Pages, block_tables, base,
     out = masked_attention(q, kd, vd, window=window, q_offset=base)
     out = out.reshape(b, c, n_heads * head_dim) @ p.wo
     return out, pages
+
+
+# ===================================================================== #
+# MLA (Multi-head Latent Attention, DeepSeek-V2), training
+# ===================================================================== #
+
+def mla_params(d_model: int, n_heads: int, kv_lora: int, qk_nope: int,
+               qk_rope: int, v_dim: int, dtype=torch.float32, *, device,
+               generator: Optional[torch.Generator] = None) -> Dict:
+    """The reference's MLA leaves, each ``[d_in, d_out]``, and the latent
+    norm's ``kv_norm.scale``."""
+    kw = dict(device=device, generator=generator)
+    return {
+        "wq": dense_init(d_model, n_heads * (qk_nope + qk_rope), dtype,
+                         **kw),
+        "w_dkv": dense_init(d_model, kv_lora, dtype, **kw),
+        "w_kr": dense_init(d_model, qk_rope, dtype, **kw),
+        "kv_norm": {"scale": rmsnorm_init(kv_lora, dtype, device=device)},
+        "w_uk": dense_init(kv_lora, n_heads * qk_nope, dtype, **kw),
+        "w_uv": dense_init(kv_lora, n_heads * v_dim, dtype, **kw),
+        "wo": dense_init(n_heads * v_dim, d_model, dtype, **kw),
+    }
+
+
+def _mla_q(p, x, n_heads, qk_nope, qk_rope, cos, sin):
+    b, s, _ = x.shape
+    q = mm(x, p["wq"]).reshape(b, s, n_heads, qk_nope + qk_rope)
+    q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
+    q_rope = apply_rope(q_rope, cos[:, :, None], sin[:, :, None])
+    return q_nope, q_rope
+
+
+def _mla_latents(p, x, cos, sin, eps):
+    ckv = rmsnorm(p["kv_norm"]["scale"], mm(x, p["w_dkv"]), eps)
+    kr = apply_rope(mm(x, p["w_kr"])[:, :, None, :], cos[:, :, None],
+                    sin[:, :, None])[:, :, 0]
+    return ckv, kr
+
+
+def mla_attention(p, x, cos, sin, *, n_heads: int, kv_lora: int,
+                  qk_nope: int, qk_rope: int, v_dim: int,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Train/prefill: decompress the latents into per-head K/V (the
+    reference's standard path).  x [B,S,d]; cos/sin [B,S,qk_rope // 2].
+    Scores are the sum of the no-rope and rope products in the inputs'
+    type, then fp32.  Long sequences attend in query chunks of
+    :func:`_pick_q_chunk`, as the reference's do (there under
+    ``jax.checkpoint``, which bounds memory only)."""
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, n_heads, qk_nope, qk_rope, cos, sin)
+    ckv, kr = _mla_latents(p, x, cos, sin, eps)
+    k_nope = mm(ckv, p["w_uk"]).reshape(b, s, n_heads, qk_nope)
+    v = mm(ckv, p["w_uv"]).reshape(b, s, n_heads, v_dim)
+    # the reference's 1 / sqrt(n) in fp32, rounded twice as there
+    scale = float(1.0 / torch.tensor(float(qk_nope + qk_rope)).sqrt())
+
+    def attend_block(qn, qr, offset):
+        """qn [b, qc, H, nope]; offset: the first query's position."""
+        qc = qn.shape[1]
+        mask = causal_mask(qc, s, 0, q_offset=offset, device=x.device)
+        scores = (torch.einsum("bshd,bthd->bhst", qn, k_nope)
+                  + torch.einsum("bshd,btd->bhst", qr, kr)).float()
+        scores = torch.where(mask, scores * scale,
+                             torch.full_like(scores, NEG_INF))
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bhst,bthd->bshd", probs, v)
+
+    q_chunk = _pick_q_chunk(s)
+    if s >= 2 * q_chunk and s % q_chunk == 0:
+        out = torch.cat([attend_block(q_nope[:, i:i + q_chunk],
+                                      q_rope[:, i:i + q_chunk], i)
+                         for i in range(0, s, q_chunk)], dim=1)
+    else:
+        out = attend_block(q_nope, q_rope, 0)
+    return mm(out.reshape(b, s, n_heads * v_dim), p["wo"])

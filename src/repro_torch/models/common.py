@@ -16,9 +16,40 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import flatten, leaves, tree_map, unflatten
 
 Params = Dict[str, object]
+
+# --------------------------------------------------------------------- #
+# products
+#
+# jnp.matmul and jnp.einsum promote operands of two types to the wider one
+# (an fp32 activation against a bf16 weight computes in fp32, the
+# reference's fp32 compute over bf16 parameters); torch.matmul takes one
+# type only.  These cast both operands to the promoted type where they
+# differ, and are plain ``@`` / ``torch.einsum`` where they agree.
+
+
+def _promoted(*ops: torch.Tensor):
+    dtype = ops[0].dtype
+    for o in ops[1:]:
+        dtype = torch.promote_types(dtype, o.dtype)
+    return [o.to(dtype) for o in ops]
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the operands' promoted type."""
+    if a.dtype != b.dtype:
+        a, b = _promoted(a, b)
+    return a @ b
+
+
+def einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the operands' promoted type."""
+    if len({o.dtype for o in ops}) > 1:
+        ops = _promoted(*ops)
+    return torch.einsum(spec, *ops)
+
 
 # --------------------------------------------------------------------- #
 # initializers
@@ -103,7 +134,7 @@ def activation(name: str):
 
 
 # --------------------------------------------------------------------- #
-# RoPE
+# RoPE and M-RoPE
 # --------------------------------------------------------------------- #
 
 
@@ -134,6 +165,26 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     x1, x2 = x[..., :d2], x[..., d2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, int, int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE.
+
+    positions [..., 3] int (t, h, w) per token.  The head_dim // 2 rotary
+    frequency channels are split into ``sections`` (t, h, w) groups, each
+    driven by its own position coordinate.  Returns cos/sin
+    [..., head_dim // 2] (fp32)."""
+    assert sum(sections) == head_dim // 2, (sections, head_dim)
+    inv = rope_freqs(head_dim, theta, device=positions.device)
+    ang = positions.float()[..., None] * inv              # [..., 3, d2]
+    parts, lo = [], 0
+    for coord, n in enumerate(sections):
+        parts.append(ang[..., coord, lo:lo + n])
+        lo += n
+    ang = torch.cat(parts, dim=-1)
+    return torch.cos(ang), torch.sin(ang)
 
 
 def text_positions(batch: int, seq: int, *, device) -> torch.Tensor:
@@ -179,8 +230,74 @@ def stacked_init(init_one: Callable[[], Params], n_layers: int) -> Params:
     return tree_map(lambda *xs: torch.stack(xs), *layers)
 
 
-def scan_layers(body: Callable, x, stacked_params: Params):
-    """``x = body(x, layer_params)`` over the layers of a stacked tree."""
+class _Remat(torch.autograd.Function):
+    """One layer under rematerialization (the reference's
+    ``jax.checkpoint``): the forward keeps the layer's inputs only (the
+    carry, the constants and the layer's leaves), and the backward runs
+    the layer again under ``torch.func.vjp`` and pulls the cotangents
+    through it.  ``torch.utils.checkpoint`` does not compose with the
+    trainer's ``vmap(grad)``; a Function with ``setup_context`` does, and
+    the generated vmap rule runs it per learner.  The kernels' own
+    Functions (attention, WKV) run inside it, in the forward and in the
+    recomputation.  The recomputation does what the forward did, so the
+    gradients are the bits of the layer taken without remat."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(body, treedef, n_carry, n_const, *tensors):
+        carry = tensors[:n_carry]
+        consts = tensors[n_carry:n_carry + n_const]
+        lp = unflatten(treedef, list(tensors[n_carry + n_const:]))
+        return tuple(body(carry, lp, consts))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        body, treedef, n_carry, n_const, *tensors = inputs
+        ctx.args = (body, treedef, n_carry, n_const)
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        body, treedef, n_carry, n_const = ctx.args
+        saved = ctx.saved_tensors
+        consts = saved[n_carry:n_carry + n_const]
+
+        def layer(*xs):
+            lp = unflatten(treedef, list(xs[n_carry:]))
+            return tuple(body(xs[:n_carry], lp, consts))
+
+        primals = saved[:n_carry] + saved[n_carry + n_const:]
+        _, vjp = torch.func.vjp(layer, *primals)
+        grads = vjp(tuple(cotangents))
+        return ((None,) * 4 + tuple(grads[:n_carry]) + (None,) * n_const
+                + tuple(grads[n_carry:]))
+
+
+def scan_layers(body: Callable, carry, stacked_params: Params, *,
+                remat: bool = False, consts: Tuple = ()):
+    """``carry = body(carry, layer_params, *consts)`` over the layers of a
+    stacked tree; ``carry`` is a tensor or a tuple of tensors.
+
+    ``remat=True`` recomputes each layer in the backward instead of
+    keeping its activations (:class:`_Remat`): memory only, the same
+    bits.  Tensors the body reads besides the carry and its leaves (cos
+    and sin) go in ``consts``, so that the recomputation reads them as
+    the forward did under the trainer's vmap."""
+    single = isinstance(carry, torch.Tensor)
+    carry = (carry,) if single else tuple(carry)
+    consts = tuple(consts)
+
+    def step(c, lp, cs):
+        out = body(c[0] if single else c, lp, *cs)
+        return (out,) if single else tuple(out)
+
     for i in range(leaves(stacked_params)[0].shape[0]):
-        x = body(x, tree_map(lambda a: a[i], stacked_params))
-    return x
+        lp = tree_map(lambda a: a[i], stacked_params)
+        if remat:
+            flat, treedef = flatten(lp)
+            carry = _Remat.apply(step, treedef, len(carry), len(consts),
+                                 *carry, *consts, *flat)
+        else:
+            carry = step(carry, lp, consts)
+    return carry[0] if single else carry

@@ -11,7 +11,7 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from repro_torch.models.common import activation, dense_init
+from repro_torch.models.common import activation, dense_init, mm
 
 
 def mlp_params(d_model: int, d_ff: int, act: str = "silu",
@@ -52,10 +52,12 @@ def mlp_init(d_model: int, d_ff: int, act: str = "silu",
 
 
 def mlp_apply(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """``p``: an :class:`MLP` or a dict of its leaves."""
+    """``p``: an :class:`MLP` or a dict of its leaves.  Products take the
+    promoted type of x and the leaves, as the reference's do."""
     get = p.get if isinstance(p, Mapping) else \
         (lambda name: getattr(p, name, None))
     fn = activation(act)
     if get("w_gate") is not None:
-        return (fn(x @ get("w_gate")) * (x @ get("w_up"))) @ get("w_down")
-    return fn(x @ get("w_up")) @ get("w_down")
+        return mm(fn(mm(x, get("w_gate"))) * mm(x, get("w_up")),
+                  get("w_down"))
+    return mm(fn(mm(x, get("w_up"))), get("w_down"))

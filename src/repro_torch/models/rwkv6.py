@@ -9,7 +9,8 @@ The WKV6 recurrence per head (head size Dh, state S in R^{Dh x Dh}):
 runs through ``kernels.ops.rwkv6_wkv`` (the hand-written CUDA kernels on
 the card, forward and backward; the plain versions on the CPU).  Token
 shift uses the paper's ddlerp.  Parameters are dicts with the reference's
-keys.  The one-token decode (``timemix_decode``, ``block_decode``) is not
+keys; products take the promoted type of their operands, as the
+reference's do (fp32 compute over bf16 parameters).  The one-token decode (``timemix_decode``, ``block_decode``) is not
 ported yet: ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
@@ -20,8 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import (Params, dense_init, layernorm,
-                                       layernorm_init, rmsnorm, rmsnorm_init)
+from repro_torch.models.common import (Params, dense_init, einsum,
+                                       layernorm, layernorm_init, mm,
+                                       rmsnorm, rmsnorm_init)
 
 LORA_DIM = 32
 DECAY_LORA_DIM = 64
@@ -65,11 +67,11 @@ def _ddlerp(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
     """The 5 mixed inputs (w, k, v, r, g), each [B, S, d]."""
     dx = x_prev - x
     xxx = x + dx * p["mu_x"].to(x.dtype)
-    lora = torch.tanh(xxx @ p["mix_A"])
+    lora = torch.tanh(mm(xxx, p["mix_A"]))
     b, s, _ = x.shape
     lora = lora.reshape(b, s, 5, LORA_DIM)
     mix_b = p["mix_B"].reshape(LORA_DIM, 5, -1)
-    dyn = torch.einsum("bsfl,lfd->bsfd", lora, mix_b)      # [B,S,5,d]
+    dyn = einsum("bsfl,lfd->bsfd", lora, mix_b)      # [B,S,5,d]
     mixes = p["mu"].to(x.dtype)[None, None] + dyn
     return [x + dx * mixes[:, :, i] for i in range(5)]    # MIX_NAMES order
 
@@ -89,13 +91,13 @@ def timemix_apply(p: Params, x: torch.Tensor, *, n_heads: int,
     b, s, d = x.shape
     xs = _shift(x, shift_state)
     xw, xk, xv, xr, xg = _ddlerp(p, x, xs)
-    r = (xr @ p["wr"]).reshape(b, s, n_heads, head_dim)
-    k = (xk @ p["wk"]).reshape(b, s, n_heads, head_dim)
-    v = (xv @ p["wv"]).reshape(b, s, n_heads, head_dim)
-    g = F.silu(xg @ p["wg"])
+    r = mm(xr, p["wr"]).reshape(b, s, n_heads, head_dim)
+    k = mm(xk, p["wk"]).reshape(b, s, n_heads, head_dim)
+    v = mm(xv, p["wv"]).reshape(b, s, n_heads, head_dim)
+    g = F.silu(mm(xg, p["wg"]))
     # decay in (0, 1): w = exp(-exp(base + lora))
     dec = p["decay_base"].float() + \
-        (torch.tanh(xw @ p["decay_A"]) @ p["decay_B"]).float()
+        mm(torch.tanh(mm(xw, p["decay_A"])), p["decay_B"]).float()
     w = torch.exp(-torch.exp(dec)).reshape(b, s, n_heads, head_dim)
     u = p["u"].float().reshape(n_heads, head_dim)
     if wkv_state is None:
@@ -103,7 +105,7 @@ def timemix_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                                 dtype=torch.float32, device=x.device)
     y, new_state = kops.rwkv6_wkv(r, k, v, w, u, wkv_state, impl=impl)
     y = layernorm(p["ln_out"], y.reshape(b, s, n_heads * head_dim), eps)
-    out = (y * g) @ p["wo"]
+    out = mm(y * g, p["wo"])
     return out, x[:, -1].float(), new_state
 
 
@@ -124,8 +126,8 @@ def channelmix_apply(p: Params, x: torch.Tensor, shift_state=None):
     dx = xs - x
     xk = x + dx * p["mu_k"].to(x.dtype)
     xr = x + dx * p["mu_r"].to(x.dtype)
-    k = torch.square(F.relu(xk @ p["wk"]))
-    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    k = torch.square(F.relu(mm(xk, p["wk"])))
+    out = torch.sigmoid(mm(xr, p["wr"])) * mm(k, p["wv"])
     return out, x[:, -1].float()
 
 

@@ -1,14 +1,22 @@
 """Decoder-LM assembly (PyTorch port of ``repro/models/transformer.py``):
-the dense GQA decoders, for training and for paged serving, and the
-RWKV-6 LM for training.
+the dense, MoE, MLA and VLM decoders for training, the dense GQA decoders
+for paged serving, and the RWKV-6 LM for training.
 
 Training (``init_train``, ``forward``, ``loss_fn``) keeps the reference's
-parameter tree: a dict with the reference's keys whose layer stack holds
-stacked ``[L, ...]`` leaves, so ``repro_torch.tree.leaves`` gives the
-leaves, shapes and order of ``jax.tree.leaves`` of the reference's
-``init``; the stack is looped over where the reference scans.  Attention
-and the WKV recurrence run through ``kernels/ops.py`` under ``impl``
-("auto": the CUDA kernels for CUDA tensors, forward and backward).
+parameter tree: a dict with the reference's keys whose layer stacks hold
+stacked ``[L, ...]`` leaves (``layers``, and ``layers_dense`` for the
+dense layers before a MoE stack), so ``repro_torch.tree.leaves`` gives
+the leaves, shapes and order of ``jax.tree.leaves`` of the reference's
+``init``; the stacks are looped over where the reference scans.
+Attention and the WKV recurrence run through ``kernels/ops.py`` under
+``impl`` ("auto": the CUDA kernels for CUDA tensors, forward and
+backward); MLA and the MoE dispatch are products, as in the reference.
+
+``build_*(compute_dtype=, remat=)`` take the reference's options: the
+activations' type (None: the parameters'), and recomputing each layer in
+the backward (``models.common.scan_layers``).  As in the reference, a
+compute type narrower than the parameters' is refused with ``TypeError``
+when the model runs.
 
 Serving keeps an ``nn.ModuleList`` of layers (``init``) whose parameter
 names are the reference's leaf paths (``layers.<i>.attn.wq`` for
@@ -17,14 +25,14 @@ weights across by splitting the stacks; the paged pool is a list of
 per-layer ``{"k", "v"}`` tensors, updated in place.  Ported:
 ``init_paged_cache``, ``prefill_paged_chunk`` and ``decode_step_paged``
 for dense GQA decoders (with or without a sliding window).  The non-paged
-prefill and decode (dense and RWKV), MoE, MLA, M-RoPE and the other
-families raise ``NotImplementedError`` naming the ROADMAP item that
+prefill and decode, the serving of MoE, MLA, VLM and RWKV models, and the
+other families raise ``NotImplementedError`` naming the ROADMAP item that
 ports them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,31 +42,54 @@ from repro_torch.models import rwkv6 as rwk
 from repro_torch.models.attention import (GQA, Pages, gqa_attention,
                                           gqa_decode_paged, gqa_params,
                                           gqa_prefill_paged_chunk,
-                                          init_paged_kv)
-from repro_torch.models.common import (Params, dense_init, embed_init,
-                                       rmsnorm, rmsnorm_init, rope_cos_sin,
-                                       scan_layers, softmax_cross_entropy,
-                                       stacked_init, text_positions)
+                                          init_paged_kv, mla_attention,
+                                          mla_params)
+from repro_torch.models.common import (Params, dense_init, embed_init, mm,
+                                       mrope_cos_sin, rmsnorm, rmsnorm_init,
+                                       rope_cos_sin, scan_layers,
+                                       softmax_cross_entropy, stacked_init,
+                                       text_positions)
 from repro_torch.models.mlp import MLP, mlp_apply, mlp_params
+from repro_torch.models.moe import moe_apply, moe_params
 
 
-def unsupported_reason(cfg: ArchConfig) -> Optional[str]:
-    """Why the port cannot build ``cfg`` as a decoder LM yet (None if it
-    can); the RWKV family is :func:`build_rwkv_lm`'s."""
+def train_unsupported_reason(cfg: ArchConfig) -> Optional[str]:
+    """Why the port cannot train ``cfg`` as a decoder LM (None if it can);
+    the RWKV family is :func:`build_rwkv_lm`'s."""
     if cfg.family == "ssm":
-        return ("family 'ssm' is the RWKV LM (build_rwkv_lm), which trains "
-                "but does not serve yet (ROADMAP Queue 1 item 6)")
+        return "family 'ssm' is the RWKV LM (build_rwkv_lm)"
     if cfg.family in ("hybrid", "audio") or cfg.is_encoder_decoder:
         return (f"family '{cfg.family}' is not ported yet "
                 f"(ROADMAP Queue 1: remaining model families)")
-    if cfg.uses_moe:
-        return "MoE layers are not ported yet (ROADMAP Queue 1: MoE)"
-    if cfg.kv_lora_rank:
-        return "MLA attention is not ported yet (ROADMAP Queue 1: MLA)"
-    if cfg.mrope or cfg.family == "vlm":
-        return ("M-RoPE and the VLM frontend are not ported yet "
-                "(ROADMAP Queue 1: M-RoPE)")
     return None
+
+
+def serve_unsupported_reason(cfg: ArchConfig) -> Optional[str]:
+    """Why the port cannot serve ``cfg`` (None if it can)."""
+    if cfg.family == "ssm":
+        return ("family 'ssm' is the RWKV LM (build_rwkv_lm), which trains "
+                "but does not serve yet (ROADMAP Queue 1 item 6)")
+    reason = train_unsupported_reason(cfg)
+    if reason:
+        return reason
+    if cfg.uses_moe or cfg.kv_lora_rank or cfg.mrope or cfg.family == "vlm":
+        return ("MoE, MLA and M-RoPE decoders train but do not serve yet "
+                "(ROADMAP Queue 1 item 6)")
+    return None
+
+
+def _check_compute_dtype(param_dtype, compute_dtype):
+    """The reference scans its layers with the carry in ``compute_dtype``;
+    a narrower compute type than the parameters' promotes in the first
+    layer, the carry comes out in another type than it went in, and
+    ``lax.scan`` raises TypeError.  The port refuses the same pairs."""
+    promoted = torch.promote_types(compute_dtype, param_dtype)
+    if promoted != compute_dtype:
+        raise TypeError(
+            f"compute_dtype {compute_dtype} over {param_dtype} parameters: "
+            f"the layers' carry goes in as {compute_dtype} and comes out as "
+            f"{promoted}, which the reference refuses (its scan carry "
+            f"changes type); bf16 training is param_dtype=torch.bfloat16")
 
 
 # ===================================================================== #
@@ -103,29 +134,76 @@ class DecoderLM(nn.Module):
 
 # --------------------------- training ---------------------------------- #
 
+def _attn_params(cfg: ArchConfig, dtype, **kw) -> Params:
+    if cfg.kv_lora_rank:
+        return mla_params(cfg.d_model, cfg.n_heads, cfg.kv_lora_rank,
+                          cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                          cfg.v_head_dim, dtype, **kw)
+    return gqa_params(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.resolved_head_dim, dtype, **kw)
+
+
 def layer_params(cfg: ArchConfig, dtype, *, device,
-                 generator: Optional[torch.Generator]) -> Params:
-    """One dense GQA layer's leaves, keyed as the reference's."""
+                 generator: Optional[torch.Generator],
+                 use_moe: bool = False) -> Params:
+    """One decoder layer's leaves (GQA or MLA, dense or MoE FFN), keyed as
+    the reference's."""
     kw = dict(device=device, generator=generator)
-    return {
+    p = {
         "ln1": {"scale": rmsnorm_init(cfg.d_model, dtype, device=device)},
-        "attn": gqa_params(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.resolved_head_dim, dtype, **kw),
+        "attn": _attn_params(cfg, dtype, **kw),
         "ln2": {"scale": rmsnorm_init(cfg.d_model, dtype, device=device)},
-        "ffn": mlp_params(cfg.d_model, cfg.d_ff, cfg.act, dtype, **kw),
     }
+    if use_moe:
+        p["ffn"] = moe_params(cfg.d_model, cfg.expert_d_ff or cfg.d_ff,
+                              cfg.n_experts, cfg.n_shared_experts, cfg.act,
+                              dtype, **kw)
+    else:
+        p["ffn"] = mlp_params(cfg.d_model, cfg.d_ff, cfg.act, dtype, **kw)
+    return p
 
 
-def layer_apply(p: Params, x, cos, sin, cfg: ArchConfig, window: int,
-                impl: str):
-    """One dense GQA layer, full sequence (training)."""
+def layer_apply(p: Params, x, cos, sin, cfg: ArchConfig, use_moe: bool,
+                window: int, impl: str):
+    """One decoder layer, full sequence (training) -> (x, aux loss)."""
     h = rmsnorm(p["ln1"]["scale"], x, cfg.norm_eps)
-    x = x + gqa_attention(p["attn"], h, cos, sin, n_heads=cfg.n_heads,
+    if cfg.kv_lora_rank:
+        a = mla_attention(p["attn"], h, cos, sin, n_heads=cfg.n_heads,
+                          kv_lora=cfg.kv_lora_rank,
+                          qk_nope=cfg.qk_nope_head_dim,
+                          qk_rope=cfg.qk_rope_head_dim,
+                          v_dim=cfg.v_head_dim, eps=cfg.norm_eps)
+    else:
+        a = gqa_attention(p["attn"], h, cos, sin, n_heads=cfg.n_heads,
                           n_kv_heads=cfg.n_kv_heads,
                           head_dim=cfg.resolved_head_dim, window=window,
                           impl=impl)
+    x = x + a
     h = rmsnorm(p["ln2"]["scale"], x, cfg.norm_eps)
-    return x + mlp_apply(p["ffn"], h, cfg.act)
+    if use_moe:
+        f, aux = moe_apply(p["ffn"], h, n_experts=cfg.n_experts,
+                           top_k=cfg.top_k, act=cfg.act,
+                           capacity_factor=cfg.capacity_factor)
+    else:
+        f, aux = mlp_apply(p["ffn"], h, cfg.act), \
+            torch.zeros((), device=x.device)
+    return x + f, aux
+
+
+def _rope_for(cfg: ArchConfig, positions):
+    """positions [B,S] (or [B,S,3] for M-RoPE) -> cos/sin [B,S,hd//2]."""
+    hd = cfg.qk_rope_head_dim if cfg.kv_lora_rank else cfg.resolved_head_dim
+    if cfg.mrope:
+        return mrope_cos_sin(positions, hd, cfg.rope_theta,
+                             cfg.mrope_sections)
+    return rope_cos_sin(positions, hd, cfg.rope_theta)
+
+
+def _split_layers(cfg: ArchConfig) -> Tuple[int, int]:
+    """(n_dense_prefix, n_main): the prefix layers use a dense FFN."""
+    if cfg.uses_moe and cfg.first_k_dense:
+        return cfg.first_k_dense, cfg.n_layers - cfg.first_k_dense
+    return 0, cfg.n_layers
 
 
 # --------------------------- serving ----------------------------------- #
@@ -200,6 +278,12 @@ def _not_ported(what: str):
     return refuse
 
 
+def _refused(cfg: ArchConfig, reason: str):
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(f"{cfg.name}: {reason}")
+    return refuse
+
+
 def _generator(gen, default, device) -> Optional[torch.Generator]:
     """The caller's generator, else the bundle's, else one seeded with 0;
     none on the meta device, where nothing is drawn (shapes only)."""
@@ -217,21 +301,28 @@ def _unembed(params: DecoderLM, cfg: ArchConfig, x):
 
 
 def build_decoder_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
+                     compute_dtype=None, remat: bool = False,
                      cache_dtype=torch.bfloat16, decode_impl: str = "auto",
                      impl: str = "auto", device="cuda",
                      generator: Optional[torch.Generator] = None
                      ) -> ModelBundle:
-    """Dense GQA decoders.  ``impl`` picks the training attention
-    (kernels/ops.py::flash_attention: "auto" / "kernel" / "plain");
-    ``decode_impl`` the paged decode attention (kernels/ops.py::
+    """Dense, MoE, MLA and VLM decoders.  ``impl`` picks the training
+    attention (kernels/ops.py::flash_attention: "auto" / "kernel" /
+    "plain"); ``decode_impl`` the paged decode attention (kernels/ops.py::
     flash_decode), and only affects ``decode_step_paged``.  The pool's
-    dtype is ``cache_dtype`` (bf16 by default, even with fp32 params)."""
-    reason = unsupported_reason(cfg)
+    dtype is ``cache_dtype`` (bf16 by default, even with fp32 params).
+    ``compute_dtype`` (None: ``param_dtype``) is the activations' type and
+    ``remat`` recomputes each layer in the backward, as in the reference.
+    MoE, MLA and VLM decoders train; their serving entry points raise."""
+    reason = train_unsupported_reason(cfg)
     if reason:
         raise NotImplementedError(f"{cfg.name}: {reason}")
+    serve_reason = serve_unsupported_reason(cfg)
     device = torch.device(device)
+    compute_dtype = compute_dtype or param_dtype
     hd = cfg.resolved_head_dim
     window = cfg.sliding_window
+    n_pre, n_main = _split_layers(cfg)
 
     def init(gen: Optional[torch.Generator] = None) -> DecoderLM:
         return DecoderLM(cfg, param_dtype, device=device,
@@ -250,26 +341,61 @@ def build_decoder_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
             p["lm_head"] = dense_init(cfg.d_model, cfg.padded_vocab,
                                       param_dtype, **kw)
         p["layers"] = stacked_init(
-            lambda: layer_params(cfg, param_dtype, **kw), cfg.n_layers)
+            lambda: layer_params(cfg, param_dtype, use_moe=cfg.uses_moe,
+                                 **kw), n_main)
+        if n_pre:
+            p["layers_dense"] = stacked_init(
+                lambda: layer_params(cfg, param_dtype, **kw), n_pre)
         return p
 
+    def _body(use_moe):
+        def body(carry, lp, cos, sin):
+            x, aux = carry
+            x, a = layer_apply(lp, x, cos, sin, cfg, use_moe, window, impl)
+            return x, aux + a
+        return body
+
     def forward(params: Params, embeds, positions):
-        """embeds [B,S,d], positions [B,S] -> (hidden [B,S,d], aux)."""
-        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-        x = scan_layers(lambda x, lp: layer_apply(lp, x, cos, sin, cfg,
-                                                  window, impl),
-                        embeds.to(param_dtype), params["layers"])
-        return (rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps),
-                torch.zeros((), device=embeds.device))
+        """embeds [B,S,d], positions [B,S] ([B,S,3] with M-RoPE) ->
+        (hidden [B,S,d], the aux loss summed over the layers)."""
+        _check_compute_dtype(param_dtype, compute_dtype)
+        cos, sin = _rope_for(cfg, positions)
+        carry = (embeds.to(compute_dtype),
+                 torch.zeros((), device=embeds.device))
+        if n_pre:
+            carry = scan_layers(_body(False), carry, params["layers_dense"],
+                                remat=remat, consts=(cos, sin))
+        x, aux = scan_layers(_body(cfg.uses_moe), carry, params["layers"],
+                             remat=remat, consts=(cos, sin))
+        return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps), aux
+
+    def _embed_batch(params: Params, batch):
+        """(embeds [B,S,d], positions, label offset): vision embeddings go
+        in front of the text's, with the batch's M-RoPE positions."""
+        tokens = batch["tokens"]
+        tok_emb = params["embed"][tokens.long()]
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            v = batch["vision_embeds"].to(tok_emb.dtype)
+            return (torch.cat([v, tok_emb], dim=1), batch["positions"],
+                    v.shape[1])
+        pos = text_positions(*tokens.shape, device=tokens.device)
+        if cfg.mrope:
+            pos = torch.stack([pos, pos, pos], dim=-1)
+        return tok_emb, pos, 0
 
     def loss_fn(params: Params, batch):
-        tokens = batch["tokens"]
-        h, _ = forward(params, params["embed"][tokens.long()],
-                       text_positions(*tokens.shape, device=tokens.device))
-        logits = h @ params["embed"].mT if cfg.tie_embeddings \
-            else h @ params["lm_head"]
+        embeds, positions, off = _embed_batch(params, batch)
+        h, aux = forward(params, embeds, positions)
+        if off:
+            h = h[:, off:]                  # labels cover the text only
+        logits = mm(h, params["embed"].mT) if cfg.tie_embeddings \
+            else mm(h, params["lm_head"])
         loss, metrics = softmax_cross_entropy(logits, batch["labels"],
                                               batch.get("mask"))
+        if cfg.uses_moe:
+            aux = aux / max(1, n_main)
+            loss = loss + cfg.router_aux_coef * aux
+            metrics["aux_loss"] = aux
         metrics["loss"] = loss
         return loss, metrics
 
@@ -307,6 +433,11 @@ def build_decoder_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
         h = rmsnorm(params.final_norm.scale, x[:, 0:1], cfg.norm_eps)
         return _unembed(params, cfg, h[:, 0]), pages
 
+    if serve_reason:
+        init = _refused(cfg, serve_reason)
+        init_paged_cache = _refused(cfg, serve_reason)
+        prefill_paged_chunk = _refused(cfg, serve_reason)
+        decode_step_paged = _refused(cfg, serve_reason)
     return ModelBundle(cfg=cfg, device=device, init=init,
                        init_train=init_train, forward=forward,
                        loss_fn=loss_fn,
@@ -322,15 +453,18 @@ def build_decoder_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
 # ===================================================================== #
 
 def build_rwkv_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
+                  compute_dtype=None, remat: bool = False,
                   impl: str = "auto", device="cuda",
                   generator: Optional[torch.Generator] = None
                   ) -> ModelBundle:
     """The RWKV-6 LM for training (``repro/models/transformer.py:513``).
-    ``impl`` picks the WKV recurrence (kernels/ops.py::rwkv6_wkv).  Its
+    ``impl`` picks the WKV recurrence (kernels/ops.py::rwkv6_wkv);
+    ``compute_dtype`` and ``remat`` are :func:`build_decoder_lm`'s.  Its
     prefill and decode step raise until ROADMAP Queue 1 item 6."""
     if cfg.family != "ssm":
         raise ValueError(f"{cfg.name}: build_rwkv_lm takes the 'ssm' family")
     device = torch.device(device)
+    compute_dtype = compute_dtype or param_dtype
     H, hd = cfg.ssm_heads, cfg.resolved_head_dim
 
     def init(gen: Optional[torch.Generator] = None) -> Params:
@@ -349,15 +483,16 @@ def build_rwkv_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
         }
 
     def forward(params: Params, embeds, positions=None):
+        _check_compute_dtype(param_dtype, compute_dtype)
         x = scan_layers(lambda x, lp: rwk.block_apply(
             lp, x, n_heads=H, head_dim=hd, eps=cfg.norm_eps, impl=impl),
-            embeds.to(param_dtype), params["layers"])
+            embeds.to(compute_dtype), params["layers"], remat=remat)
         return (rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps),
                 torch.zeros((), device=embeds.device))
 
     def loss_fn(params: Params, batch):
         h, _ = forward(params, params["embed"][batch["tokens"].long()])
-        logits = h @ params["lm_head"]
+        logits = mm(h, params["lm_head"])
         return softmax_cross_entropy(logits, batch["labels"],
                                      batch.get("mask"))
 

@@ -1,7 +1,10 @@
-"""The port's LM training stack against the JAX package's: the RWKV-6 LM
-and the dense GQA decoder at ``cfg.reduced()`` (starcoder2's window cut to
-64, at a sequence of 128 so that it bites), the Markov data, the round
-loader and the training CLI.
+"""The port's LM training stack against the JAX package's: the RWKV-6 LM,
+the dense GQA decoders (starcoder2's window cut to 64, at a sequence of
+128 so that it bites), the MoE/MLA decoders (deepseek-v2-lite with its
+dense first layer, phi3.5-moe) and the M-RoPE VLM backbone (qwen2-vl,
+with the stub's patch embeddings in front of the text) at
+``cfg.reduced()``, the Markov data, the round loader and the training
+CLI.
 
 Both packages start from the reference's init, carried across as numpy by
 ``convert.train_params_from_jax``, and take the same numpy batches;
@@ -37,6 +40,7 @@ from repro.core import hier_avg as jh  # noqa: E402
 from repro.core.topology import HierTopology as JTopo  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
 from repro.models import build as jbuild  # noqa: E402
+from repro.models import stubs as jstubs  # noqa: E402
 from repro import optim as joptim  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
@@ -51,11 +55,15 @@ from repro_torch.data.loader import HierDataLoader  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.stubs import make_train_batch  # noqa: E402
+from repro_torch.models.transformer import _split_layers  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
 LOSS_REL, GRAD_REL, RTOL, ATOL = 1e-5, 2e-5, 1e-5, 1e-6
 NOISE = 10          # a swap's magnitudes tie within NOISE x the delta diff
-ARCHS = {"rwkv6-1.6b": 64, "starcoder2-15b": 128}     # arch -> sequence
+ARCHS = {"rwkv6-1.6b": 64, "starcoder2-15b": 128,     # arch -> sequence
+         "deepseek-v2-lite-16b": 64, "phi3.5-moe-42b-a6.6b": 64,
+         "qwen2-vl-2b": 64, "yi-34b": 64, "deepseek-67b": 64,
+         "mistral-large-123b": 64}
 
 
 def _cfgs(arch):
@@ -90,6 +98,22 @@ def _tokens(rng, shape, vocab):
     return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
 
 
+def _batch(rng, jcfg, shape):
+    """Tokens and labels of ``shape`` [..., seq]; for the VLM, the stub's
+    patch embeddings (0.02 x normal) and M-RoPE positions in front of
+    seq - Nv text tokens."""
+    nv = min(jcfg.frontend_tokens, shape[-1] // 4) \
+        if jcfg.family == "vlm" else 0
+    out = _tokens(rng, shape[:-1] + (shape[-1] - nv,), jcfg.vocab_size)
+    if nv:
+        out["vision_embeds"] = (0.02 * rng.standard_normal(
+            shape[:-1] + (nv, jcfg.d_model))).astype(np.float32)
+        pos = np.asarray(jstubs.mrope_positions(1, nv, shape[-1] - nv))[0]
+        out["positions"] = np.array(np.broadcast_to(pos, shape[:-1]
+                                                    + pos.shape))
+    return out
+
+
 def _close_rel(a, b, rel, what=""):
     a = np.asarray(a.detach().numpy() if isinstance(a, torch.Tensor) else a,
                    np.float64)
@@ -119,16 +143,18 @@ def test_training_leaves_match_the_reference(arch):
         got = [(p, tuple(a.shape), str(a.dtype).replace("torch.", ""))
                for p, a in zip(_paths(tree), leaves(tree))]
         assert got == want
-    assert cfg.n_layers == 2 and all(
-        a.shape[0] == 2 for a in leaves(jp["layers"]))
+    n_pre, n_main = _split_layers(cfg) if cfg.family != "ssm" else (0, 2)
+    assert cfg.n_layers == n_pre + n_main == 2 and all(
+        a.shape[0] == n_main for a in leaves(jp["layers"]))
+    assert all(a.shape[0] == n_pre
+               for a in leaves(jp.get("layers_dense", {})))
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_loss_and_gradients_match_jax(arch):
     jcfg, cfg = _cfgs(arch)
     jp = _jax_params(arch)
-    batch = _tokens(np.random.default_rng(1), (2, ARCHS[arch]),
-                    cfg.vocab_size)
+    batch = _batch(np.random.default_rng(1), jcfg, (2, ARCHS[arch]))
     jb = jbuild(jcfg)
     (jl, jm), jg = jax.jit(jax.value_and_grad(jb.loss_fn, has_aux=True))(
         jax.tree.map(jnp.asarray, jp),
@@ -140,6 +166,9 @@ def test_loss_and_gradients_match_jax(arch):
         params, tb)
     _close_rel(tl, jl, LOSS_REL, "loss")
     _close_rel(tm["accuracy"], jm["accuracy"], LOSS_REL, "accuracy")
+    assert sorted(tm) == sorted(jm)
+    if cfg.uses_moe:
+        _close_rel(tm["aux_loss"], jm["aux_loss"], LOSS_REL, "aux_loss")
     for path, a, b in zip(_paths(jp), leaves(tg), jax.tree.leaves(jg)):
         _close_rel(a, b, GRAD_REL, f"grad {path}")
 
@@ -166,7 +195,20 @@ def test_hier_round_with_topk_matches_jax(monkeypatch):
     in the delta (NOISE times the largest difference of the unsent
     residual): those may swap, and nothing else; params agree off the
     swapped coordinates and by at most a sent delta on them."""
-    arch, seq, plan = "rwkv6-1.6b", 16, "local@2/global@4:topk:0.1"
+    _topk_round(monkeypatch, "rwkv6-1.6b", 16)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "phi3.5-moe-42b-a6.6b", "qwen2-vl-2b"])
+def test_hier_round_with_topk_matches_jax_moe_mla_vlm(monkeypatch, arch):
+    """The round of test_hier_round_with_topk_matches_jax on the MoE, MLA
+    and VLM decoders, under the same limits; the stacked expert leaves
+    and the fp32 router go through the per-leaf top-k like any other."""
+    _topk_round(monkeypatch, arch, 32)
+
+
+def _topk_round(monkeypatch, arch, seq):
+    plan = "local@2/global@4:topk:0.1"
     jcfg, cfg = _cfgs(arch)
     fires = _record_fires(monkeypatch)
     shape = (1, 2, 2)
@@ -177,8 +219,8 @@ def test_hier_round_with_topk_matches_jax(monkeypatch):
         jnp.asarray, jp), joptim.sgd(0.1), jax.random.PRNGKey(0), plan=plan,
         bucket_bytes=0)
     tstate = convert.train_state_from_jax(_np(jstate), device="cpu")
-    batch = _tokens(np.random.default_rng(2),
-                    thier.batch_dims + shape + (2, seq), cfg.vocab_size)
+    batch = _batch(np.random.default_rng(2), jcfg,
+                   thier.batch_dims + shape + (2, seq))
     jround = jax.jit(jh.make_hier_round(jbuild(jcfg).loss_fn,
                                         joptim.sgd(0.1), jhier))
     jstate, jm = jround(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -275,8 +317,9 @@ def test_loader_shapes_streams_and_refusals():
     with pytest.raises(NotImplementedError, match="item 7"):
         HierDataLoader(sample, topo=topo, hier=hier, per_learner_batch=3,
                        mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make_train_batch(torch.Generator(), get_config("qwen2-vl-2b"), 1, 8)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        make_train_batch(torch.Generator(),
+                         get_config("seamless-m4t-large-v2"), 1, 8)
 
 
 def test_rwkv_serving_entry_points_raise():
@@ -295,6 +338,18 @@ def test_train_cli_runs_one_round_on_cpu(capsys):
     assert "arch=rwkv6-1.6b-reduced device=cpu" in out
     line = [ln for ln in out.splitlines() if ln.startswith("round   0")][0]
     loss = float(line.split("loss=")[1].split()[0])
+    assert np.isfinite(loss) and abs(loss - np.log(512)) < 1.0
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "qwen2-vl-2b"])
+def test_train_cli_runs_moe_and_vlm_on_cpu(arch, capsys):
+    """--arch takes the MoE and VLM families, as the reference's CLI does
+    (the VLM batches carry the stub's patch embeddings)."""
+    ttrain.main(["--arch", arch, "--rounds", "1", "--learners", "4", "--s",
+                 "2", "--batch", "2", "--seq", "32", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}-reduced device=cpu" in out
+    loss = float(_round_line(out).split("loss=")[1].split()[0])
     assert np.isfinite(loss) and abs(loss - np.log(512)) < 1.0
 
 

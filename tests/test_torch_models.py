@@ -1,7 +1,9 @@
 """The port's decoder against the JAX package's, on the same weights.
 
 Config: starcoder2-15b ``.reduced()`` with ``n_kv_heads=2`` (G = 2,
-sliding window 64), fp32 params and an fp32 cache.  The reference's
+sliding window 64), fp32 params and an fp32 cache; the paged serving test
+also runs yi-34b and deepseek-67b ``.reduced()`` as they are (G = 1, no
+window).  The reference's
 weights come across through ``repro_torch.convert.params_from_jax``; the
 reference's outputs are taken under ``jax.jit``.  Logits agree within
 atol/rtol 1e-4: XLA and ATen sum in different orders.
@@ -41,7 +43,10 @@ def _cfgs():
 
 @pytest.fixture(scope="module")
 def pair():
-    jc, tc = _cfgs()
+    return _pair(*_cfgs())
+
+
+def _pair(jc, tc):
     jb = jbuild(jc, cache_dtype=jnp.float32, decode_impl="xla")
     np_params = jax.tree.map(np.asarray, jb.init(jax.random.PRNGKey(0)))
     tb = build(tc, cache_dtype=torch.float32, device="cpu")
@@ -122,6 +127,18 @@ def test_paged_prefill_and_decode_match_jax(pair):
     64-token window bites, then 6 teacher-forced decode steps over three
     slots, the last one inactive: it holds pages, as a slot mid-prefill
     does, and its writes must go to the null page instead."""
+    _paged_run(pair)
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "deepseek-67b"])
+def test_paged_prefill_and_decode_match_jax_dense_decoders(arch):
+    """The run of test_paged_prefill_and_decode_match_jax on the other
+    dense GQA decoders, at their reduced configs."""
+    _paged_run(_pair(jget_config(arch).reduced(),
+                     get_config(arch).reduced()))
+
+
+def _paged_run(pair):
     jc, jb, np_params, tc, tb, model = pair
     jparams = jax.tree.map(jnp.asarray, np_params)
     rng = np.random.default_rng(4)
@@ -182,6 +199,19 @@ def test_paged_prefill_and_decode_match_jax(pair):
 
 
 def test_unported_families_raise():
-    for arch in ("deepseek-v2-lite-16b", "qwen2-vl-2b", "hymba-1.5b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(get_config(arch).reduced(), device="cpu")
+    """The hybrid family does not build; the MoE, MLA and VLM decoders
+    build and train, and their serving entry points raise (item 6)."""
+    from repro_torch.serve.engine import PagedServeEngine
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build(get_config("hymba-1.5b").reduced(), device="cpu")
+    for arch in ("deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
+                 "qwen2-vl-2b"):
+        bundle = build(get_config(arch).reduced(), device="cpu")
+        assert bundle.init_train(torch.Generator().manual_seed(0))
+        for fn in (bundle.init, bundle.init_paged_cache,
+                   bundle.prefill_paged_chunk, bundle.decode_step_paged,
+                   bundle.prefill, bundle.decode_step):
+            with pytest.raises(NotImplementedError, match="item 6"):
+                fn(None, None)
+        with pytest.raises(NotImplementedError, match="item 6"):
+            PagedServeEngine(bundle, bundle.init())

@@ -45,7 +45,8 @@ def test_importing_every_module_leaves_jax_out():
               "optim.optimizers", "optim.schedules", "optim.clip",
               "data.synthetic", "models.resnet", "kernels.rwkv6_wkv",
               "kernels.flash_attention", "models.rwkv6", "models.stubs",
-              "data.loader", "launch.train"):
+              "data.loader", "launch.train", "models.moe",
+              "models.attention", "models.common", "models.transformer"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
