@@ -8,7 +8,11 @@ qint8 pack/unpack and batched-QR kernels, and Hier-AVG training of the
 RWKV-6 and dense GQA language models at full width through the
 hand-written WKV6 and flash-attention kernels, forward and backward, and
 of the MoE/MLA and M-RoPE decoders in bf16 (with remat) through the
-attention and top-k kernels.
+attention and top-k kernels; then serving of every trained family: the
+dense wave engine on StarCoder2-15B (its prefill through the attention
+kernel), RWKV-6 1.6B (its prefill through the WKV kernel, whose final
+state the decode carries on) and DeepSeek-V2-Lite's MLA and MoE on the
+paged engine.
 
   python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -39,6 +43,17 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               with the plain version at 10, 20 and 40 layers; at 40 they
               agree within LOGIT_REL_TOL * max|logit|, and two controls with
               a wrong window must not
+  4c. dense   the same weights through ServeEngine: 4 prompts of 2048
+              tokens in one wave, 32 new tokens each; exactly 40 bf16
+              flash_attention forwards (window 4096) in the prefill; its
+              last-position logits kernel vs plain within DENSE_LOGIT_TOL,
+              a control with the window four pages short outside it; the
+              same requests through phase 4's paged engine (greedy
+              agreement); the attention forward at [4, 2048, 48/4, 128]
+              against plain, SDPA and the bound
+  5b. logits mean  phase 5 averaged over 4 steps x 8 slots, all past the
+              window: mean relative L2 within LOGIT_MEAN_TOL, the
+              one-page-short window control outside it
   6. topk     topk_compress, alone and grouped (topk_compress_many),
               against topk_compress_plain and topk_compress_radix_plain
               (the kernel's decomposition in plain PyTorch), bit for bit
@@ -170,7 +185,7 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               on the card (reduced deepseek-v2-lite)
   16. vlm     qwen2-vl-2b at published widths (d 1536, 12/2 heads of 128,
               d_ff 8960, tied vocab 151,936, M-RoPE (16, 24, 24)), depth
-              28 -> VLM_LAYERS, bf16 params, remat, P = 4, plan
+              28 -> VLM_LAYERS (4), bf16 params, remat, P = 4, plan
               local@2/global@8:topk:0.05 per leaf, 1 x 1024 tokens per
               learner per step (256 stub patch embeddings + 768 Markov
               tokens), 3 rounds: exact launches (attention forward twice
@@ -182,6 +197,27 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               peaks; a profiled round; the bf16 attention kernels at the
               trainer's shape [4, 1024, 12/2, 128] against plain, SDPA
               and the bound
+  17. rwkv serve  rwkv6-1.6b at full width and depth, bf16, ServeEngine:
+              8 requests of 1024 tokens in two waves of 4, 64 new tokens
+              each; exactly 48 WKV forwards (24 layers x 2 prefills, s0 the
+              cache's zeros, sT kept for the decode); the prefill's states
+              and logits kernel vs plain at fp32 compute within
+              RWKV_PLAIN_TOL (control: the bonus u dropped; at bf16,
+              printed), continuity prefill + 16 decode steps
+              against the longer prefill at fp32 compute within
+              RWKV_CONT_TOL (control: the state of a prompt shifted by one
+              token); tokens/s, decode step, prefill, peak; the WKV forward
+              at [4, 1024, 32, 64] against plain and the bound, with and
+              without its checkpoints
+  18. mla/moe serve  deepseek-v2-lite-16b at full width and depth (one
+              dense layer, 26 MoE), bf16, PagedServeEngine (8 slots, pages
+              of 16, chunks of 256): 12 requests of 256-2048 tokens,
+              budgets 32-64, a slot refilled; tokens/s, decode step,
+              peak, one profiled step by class (latent gather, absorbed
+              attend, MoE dispatch, expert products, idle share); dense
+              against paged at a dropless capacity factor (fp32 compute
+              and caches): the first decode step's logits within
+              MOE_DENSE_TOL (control: one page short), greedy agreement
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -356,10 +392,11 @@ VLM_PLAN = "local@2/global@8:topk:0.05"
 # bf16 param per learner (params, EF ref, fp32 EF err old and new, the fp32
 # decompressed and averaged trees, the cast result and its ref clone); at
 # 4 layers (420,558,336 params) the card read a 41.48 GiB peak, 26.5 B a
-# param a learner.  So full depth (1,543,656,960 params) would hold ~164
-# GB, 10 layers (701,332,992) ~74 GB (69 GiB; 69.10 read), and 11 would
-# not fit the 80
-VLM_LAYERS = 10
+# param a learner, and 10 layers read 69.10 GiB; full depth would hold
+# ~164 GB.  The serving phases (4c, 5b, 17, 18) take the ~100 s that 10
+# layers took beyond 4 (phase 16: 151-180 s at 10), so the script stays
+# within 1000 s: 4 layers, launch counts exact for that depth
+VLM_LAYERS = 4
 # phase 16, kernel against plain in bf16, 1 round from one state copy:
 # the round's mean loss within BF16_LOSS_REL relative (a bf16 logit is
 # rounded to 2^-9 of itself and the attention's P and output again), and
@@ -377,6 +414,66 @@ VLM_LAYERS = 10
 # apart.)
 BF16_LOSS_REL = 2.0 ** -8
 BF16_UPDATE_L2 = 2.0 ** -2
+# phase 5b: phase 5's check averaged over LOGIT_MEAN_STEPS decode steps x 8
+# slots, all past the window: the mean over (step, slot) of ||kernel -
+# plain|| / ||plain|| over the slot's logits.  Averaging 32 readings takes
+# out the luck of which bf16 outputs flip; a relative L2 over 49,152
+# logits reads the spread of the difference against the spread of the
+# logits, as a ratio of maxima does for near-Gaussian vectors, so a sound
+# kernel should read below phase 5's per-call readings (1.35-1.63e-2, the
+# worst of 7 slots) and under the same limit, while the window control,
+# one page short in every slot (phase 5's bit in 2 of 7, 1.87-2.10e-2 as
+# the worst of them), should read above it in the mean too
+LOGIT_MEAN_STEPS = 4
+LOGIT_MEAN_TOL = 1.6e-2
+# phase 4c: starcoder2-15b through ServeEngine on phase 4's weights, one
+# wave of DENSE_B prompts of DENSE_PLEN tokens (a power of two, so the
+# dense and paged engines see the same tokens).  The prefill's
+# last-position logits, kernel against plain, max|diff| / max|logit|,
+# within DENSE_LOGIT_TOL: twice phase 5's decode limit, since every one of
+# the 2048 prompt positions carries the kernel's bf16 roundings into the
+# keys and values the last one reads (in phase 5 only the new token's
+# did), while independent roundings of many keys average out in the
+# softmax.  Control: plain with the window four pages short of the
+# prompt (the last 64 positions lose up to 64 of their keys; phase 5's one
+# page of 4100 keys read ~2e-2, here 3% of the last position's keys at
+# every layer)
+DENSE_B, DENSE_PLEN, DENSE_NEW = 4, 2048, 32
+DENSE_LOGIT_TOL = 3.2e-2
+# phase 17: rwkv6-1.6b through ServeEngine.  Kernel against plain (one
+# wave's prefill: every layer's three states and the last logits,
+# max|diff| / max|ref| each, the largest of them) and continuity (prefill
+# of RWKV_PLEN - RWKV_CONT tokens then RWKV_CONT decode steps, against a
+# prefill of all RWKV_PLEN), both at fp32 compute over the bf16 params,
+# within RWKV_CONT_TOL: the WKV runs in fp32 either way (w is fp32, so
+# r, k and v are promoted), and the two sides differ only by fp32 sums
+# in other orders (the kernel's tiles against the plain loop or the
+# decode's einsum, GEMMs of 4 rows against 4096) at ~1e-6 each, 10x for
+# 24 layers and 16 steps, then 10x margin.  Controls: plain with the
+# bonus u dropped (y loses r (u k) v); the state of the prompt shifted
+# by one token, continued with the same 16 tokens (a decay step and a
+# token of history apart, (1 - w) of the state, w down to 0.69).  The
+# kernel against plain at the served bf16 is printed, not held: a first
+# limit of 1e-2, set before any reading from the rarity of bf16 flips in
+# an fp32 WKV's y, failed the kernel on an H100 at 4.06e-2 against
+# 1.13e-1 for the u-dropped control, as 24 bf16 layers amplify those
+# flips (PERF.md section 6)
+RWKV_REQS, RWKV_SLOTS, RWKV_PLEN, RWKV_NEW, RWKV_CONT = 8, 4, 1024, 64, 16
+RWKV_PLAIN_TOL = RWKV_CONT_TOL = 1e-4
+# phase 18: deepseek-v2-lite-16b paged (MOE_REQS requests), then dense
+# against paged at a dropless capacity factor with fp32 compute and fp32
+# caches over the bf16 params, 4 prompts of MOE_CMP_PLEN tokens: the first
+# decode step's logits, max|diff| / max|logit|, within MOE_DENSE_TOL.  The
+# two paths attend in other forms (decompressed against absorbed latents)
+# and route in other groups (1024 tokens against chunks of 256), ~1e-6
+# apart in fp32; a top-6 routing of 64 probabilities that are that close
+# flips, a few of ~100,000 (token, layer) routings, each moving one
+# token's layer output, a key or two of the last position's 1024, so
+# ~1e-3-1e-2.  Control: the paged step one page short (attending 1008 of
+# the 1025 keys at a rope position 16 early, its latent over a prompt
+# position's), 1.6% of the keys, four times phase 5's one page of ~4100
+MOE_REQS, MOE_CMP_PLEN, MOE_CMP_NEW = 12, 1024, 32
+MOE_DENSE_TOL = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -960,6 +1057,208 @@ def phase_logits(torch, np, cfg, params, engine):
           + " ".join(f"layers{d}={v:.4e}" for d, v in sound.items())
           + f" tol={LOGIT_REL_TOL} controls (plain vs plain, 40 layers): "
           + " ".join(f"{k}={v:.4e}" for k, v in controls.items()))
+
+
+def phase_logits_mean(torch, np, cfg, params, engine):
+    """Phase 5b: phase 5's check averaged over steps and slots.  Four
+    teacher-forced decode steps (seeded tokens) over all 8 slots, every
+    one past the window (lengths 4100..4163), through the kernel and
+    through the plain version, each run writing its own K/V at the
+    positions it then reads.  The measure is the mean over the 32 (step,
+    slot) pairs of ||kernel - plain|| / ||plain|| over the slot's logits;
+    the control (plain with the window one page short, against plain)
+    bites in every slot and must exceed the limit."""
+    import dataclasses
+
+    from repro_torch.models import build
+    slots, maxp = engine.slots, engine.max_pages_per_seq
+    tables = (torch.arange(slots * maxp, dtype=torch.int32, device="cuda")
+              .reshape(slots, maxp) + 1)
+    start = torch.arange(4100, 4100 + 9 * slots, 9, dtype=torch.int32,
+                         device="cuda")
+    toks = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(LOGIT_MEAN_STEPS, slots)),
+        dtype=torch.int32, device="cuda")
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+
+    def run(b):
+        out = []
+        with torch.no_grad():
+            for t in range(LOGIT_MEAN_STEPS):
+                lg, _ = b.decode_step_paged(params, toks[t], engine.pages,
+                                            tables, start + t, active)
+                out.append(lg.float())
+        return torch.stack(out)                       # [steps, slots, V]
+
+    def bundle(window):
+        return build(dataclasses.replace(cfg, sliding_window=window),
+                     param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                     decode_impl="plain", device="cuda")
+
+    def measures(a, b):
+        l2 = ((a - b).norm(dim=-1) / b.norm(dim=-1)).mean().item()
+        mx = ((a - b).abs().amax(-1) / b.abs().amax(-1)).mean().item()
+        return l2, mx
+
+    kern = run(engine.bundle)
+    plain = run(bundle(cfg.sliding_window))
+    ctrl = run(bundle(cfg.sliding_window - engine.page_size))
+    torch.cuda.synchronize()
+    (sound, sound_mx), (control, control_mx) = (measures(kern, plain),
+                                                measures(ctrl, plain))
+    print(f"phase 5b logits averaged over {LOGIT_MEAN_STEPS} steps x "
+          f"{slots} slots (lengths {start[0].item()}..{start[-1].item()}, "
+          f"all past the window): mean rel L2 kernel vs plain "
+          f"{sound:.4e} (limit {LOGIT_MEAN_TOL}), control window one page "
+          f"short {control:.4e} (must exceed), separation "
+          f"{control / max(sound, 1e-30):.2f}x; mean per-slot max|diff|/max|logit| "
+          f"kernel {sound_mx:.4e} control {control_mx:.4e}")
+    if not math.isfinite(sound) or sound > LOGIT_MEAN_TOL:
+        fail(f"averaged decode logits kernel vs plain {sound:.4e} > "
+             f"{LOGIT_MEAN_TOL}")
+    if not control > LOGIT_MEAN_TOL:
+        fail(f"averaged control reads {control:.4e} <= {LOGIT_MEAN_TOL}: "
+             f"the averaged limit would not fail a window fault")
+    return {"sound": sound, "control": control}
+
+
+def sync_timed(torch, fn, sink):
+    """fn, with its wall time (host clock across a synchronize on both
+    sides) appended to ``sink`` in ms."""
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def rel_max(a, b) -> float:
+    """max|a - b| / max|b| over two tensors, in fp32."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def agreement(np, a, b):
+    """(share of equal tokens, first differing position per row or -1)."""
+    a, b = np.asarray(a), np.asarray(b)
+    eq = a == b
+    first = [int(np.argmin(r)) if not r.all() else -1 for r in eq]
+    return float(eq.mean()), first
+
+
+def dense_attn_times(torch, cfg, flush, b, s):
+    """The bf16 attention forward at the dense prefill's shape, window
+    cfg.sliding_window (longer than the prompt, so SDPA's causal mask is
+    the same function): kernel against plain, SDPA and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    hq, hkv, d, w = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                     cfg.sliding_window)
+    q, k, v, _ = attn_inputs(torch, b, s, hq, hkv, d, torch.bfloat16, 91)
+    (fb, fby, _, fbasis), _ = attn_bound(b, s, hq, hkv, d, w, 2)
+    t = dict(
+        ms=time_ms(torch, lambda: flash_attention_fwd(q, k, v, window=w),
+                   flush, 10),
+        plain_ms=time_ms(torch, lambda: kref.flash_attention_plain(
+            q, k, v, window=w), flush, 3),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True), flush, 10),
+        bound_ms=fb, bound_by=fby)
+    print(f"phase 4c attention forward at the dense prefill's shape (B{b} "
+          f"S{s} Hq{hq} Hkv{hkv} D{d} window {w} bf16, L2 flushed): ms="
+          f"{fmt_ms(t['ms'])} plain_ms={fmt_ms(t['plain_ms'])} sdpa_ms="
+          f"{fmt_ms(t['library_ms'])} bound_ms={fb:.4f} ({fby}, {fbasis})")
+    return t
+
+
+def phase_dense_serve(torch, np, cfg, params, engine):
+    """Phase 4c: starcoder2-15b (phase 4's weights, full width and depth,
+    bf16) through ServeEngine: 4 prompts of DENSE_PLEN tokens in one
+    wave, DENSE_NEW new tokens each.  The prefill launches one bf16
+    flash_attention forward a layer (window 4096); its last-position
+    logits are held against impl="plain", and a control (plain with the
+    window four pages short of the prompt) must fail the limit.  The
+    same requests through phase 4's paged engine: greedy agreement."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import build
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    rng = np.random.default_rng(40)
+    reqs = [rng.integers(0, cfg.vocab_size, size=DENSE_PLEN).astype(np.int32)
+            for _ in range(DENSE_B)]
+    max_len = DENSE_PLEN + DENSE_NEW
+
+    def bundle(impl, window=cfg.sliding_window):
+        return build(dataclasses.replace(cfg, sliding_window=window),
+                     param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                     impl=impl, device="cuda")
+
+    kern = bundle("auto")
+    prefill_ms, decode_ms = [], []
+    timed = dataclasses.replace(
+        kern, prefill=sync_timed(torch, kern.prefill, prefill_ms),
+        decode_step=sync_timed(torch, kern.decode_step, decode_ms))
+    dense = ServeEngine(timed, params, max_len=max_len,
+                        gen=GenerationConfig(max_new_tokens=DENSE_NEW))
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    res = dense.serve_queue(reqs, slots=DENSE_B)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention_fwd.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != cfg.n_layers:
+        fail(f"phase 4c: flash_attention forward launches {launches} != "
+             f"{cfg.n_layers} layers x 1 prefill")
+    tokens = sum(r.steps for r in res)
+    if tokens != DENSE_B * DENSE_NEW or not all(
+            ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
+            for r in res):
+        fail(f"phase 4c: {tokens} tokens or a token outside the vocab")
+
+    # kernel prefill against plain, and the control
+    batch = {"tokens": torch.tensor(np.stack(reqs), device="cuda"),
+             "max_len": max_len}
+    last = {}
+    for tag, b in (("kernel", kern), ("plain", bundle("plain")),
+                   ("control", bundle("plain", DENSE_PLEN - 4 * 16))):
+        lg, cache = b.prefill(params, batch)
+        last[tag] = lg.float()
+        del cache
+    torch.cuda.synchronize()
+    sound = rel_max(last["kernel"], last["plain"])
+    control = rel_max(last["control"], last["plain"])
+
+    paged = engine.serve_queue(reqs, max_new=[DENSE_NEW] * DENSE_B)
+    share, first = agreement(np, [r.tokens for r in res],
+                             [r.tokens for r in paged])
+    print(f"phase 4c dense serve starcoder2-15b (ServeEngine, {DENSE_B} x "
+          f"{DENSE_PLEN} tokens, {DENSE_NEW} new, one wave): wall_s="
+          f"{wall:.3f} tokens_per_s={tokens / wall:.2f} prefill_ms="
+          f"{prefill_ms[0]:.3f} decode_ms_median="
+          f"{statistics.median(decode_ms):.3f} decode_steps={len(decode_ms)} "
+          f"peak_mem_gib={peak:.2f} flash_attention_forward_launches="
+          f"{launches}; prefill last-position logits kernel vs plain "
+          f"max|diff|/max|logit| {sound:.4e} (limit {DENSE_LOGIT_TOL}), "
+          f"control window {DENSE_PLEN - 64} {control:.4e} (must exceed); "
+          f"dense vs paged greedy tokens equal {share:.4f}, first "
+          f"difference per request {first}")
+    if not math.isfinite(sound) or sound > DENSE_LOGIT_TOL:
+        fail(f"phase 4c prefill logits kernel vs plain {sound:.4e} > "
+             f"{DENSE_LOGIT_TOL}")
+    if not control > DENSE_LOGIT_TOL:
+        fail(f"phase 4c control reads {control:.4e} <= {DENSE_LOGIT_TOL}")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    attn = dense_attn_times(torch, cfg, flush, DENSE_B, DENSE_PLEN)
+    return {"flash_attention_forward": launches}, attn
 
 
 # --------------------------------------------------------------------- #
@@ -3780,6 +4079,380 @@ def phase_elastic(torch, phase7_walls):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phases 17 and 18: RWKV-6 serving, MLA + MoE paged serving
+
+
+def rwkv_states_rel(torch, ca, cb) -> float:
+    """max over layers and state kinds of max|a - b| / max|b|."""
+    return max(rel_max(a[k], b[k]) for a, b in zip(ca, cb)
+               for k in ("tm_shift", "wkv", "cm_shift"))
+
+
+def without_bonus(params):
+    """The RWKV tree with every layer's bonus u set to zero (the
+    WKV's u term dropped): phase 17's kernel-vs-plain control."""
+    tm = params["layers"]["tm"]
+    return dict(params, layers=dict(
+        params["layers"], tm=dict(tm, u=tm["u"].new_zeros(tm["u"].shape))))
+
+
+def phase_rwkv_serve(torch, np):
+    """Phase 17: rwkv6-1.6b at full width and depth, bf16 params, through
+    ServeEngine: RWKV_REQS seeded requests of RWKV_PLEN tokens in waves of
+    RWKV_SLOTS, RWKV_NEW new tokens each.  The prefill runs the WKV
+    forward kernel once a layer from the cache's zero state and keeps its
+    final state for the decode (plain products).  Held, at fp32 compute
+    over the same bf16 params: the kernel prefill's per-layer states and
+    last-position logits against impl="plain" (control: plain with the
+    bonus u dropped; the bf16 reading is printed beside it), and
+    continuity, prefill(p[:n]) then 16 teacher-forced decode steps
+    against prefill(p[:n + 16]) (control: the state of the prompt
+    shifted by one token, continued with the same 16 tokens)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_forward
+    from repro_torch.models import build
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    from repro_torch.tree import leaves
+
+    cfg = get_config("rwkv6-1.6b")
+    t0 = time.perf_counter()
+    kern = build(cfg, param_dtype=torch.bfloat16, device="cuda")
+    params = kern.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in leaves(params))
+    rng = np.random.default_rng(17)
+    reqs = [rng.integers(0, cfg.vocab_size, size=RWKV_PLEN).astype(np.int32)
+            for _ in range(RWKV_REQS)]
+    prefill_ms, decode_ms = [], []
+    timed = dataclasses.replace(
+        kern, prefill=sync_timed(torch, kern.prefill, prefill_ms),
+        decode_step=sync_timed(torch, kern.decode_step, decode_ms))
+    engine = ServeEngine(timed, params, max_len=RWKV_PLEN + RWKV_NEW,
+                         gen=GenerationConfig(max_new_tokens=RWKV_NEW))
+    torch.cuda.reset_peak_memory_stats()
+    rwkv6_wkv_forward.launches = 0
+    t0 = time.perf_counter()
+    res = engine.serve_queue(reqs, slots=RWKV_SLOTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rwkv6_wkv_forward.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    waves = -(-RWKV_REQS // RWKV_SLOTS)
+    if launches != cfg.n_layers * waves:
+        fail(f"phase 17: WKV forward launches {launches} != {cfg.n_layers} "
+             f"layers x {waves} prefills")
+    tokens = sum(r.steps for r in res)
+    if tokens != RWKV_REQS * RWKV_NEW or not all(
+            ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
+            for r in res):
+        fail(f"phase 17: {tokens} tokens or a token outside the vocab")
+    print(f"phase 17 serve rwkv6-1.6b full width and depth bf16 "
+          f"({n_params} params, init {init_s:.1f}s; ServeEngine, "
+          f"{RWKV_REQS} x {RWKV_PLEN} tokens in {waves} waves of "
+          f"{RWKV_SLOTS}, {RWKV_NEW} new): wall_s={wall:.3f} tokens_per_s="
+          f"{tokens / wall:.2f} prefill_ms={fmt(prefill_ms)} "
+          f"decode_ms_median={statistics.median(decode_ms):.3f} "
+          f"decode_steps={len(decode_ms)} peak_mem_gib={peak:.2f} "
+          f"wkv_forward_launches={launches}")
+
+    # kernel prefill against plain, one wave: held at fp32 compute over
+    # the bf16 params, reported at the served bf16
+    batch = {"tokens": torch.tensor(np.stack(reqs[:RWKV_SLOTS]),
+                                    device="cuda")}
+
+    def pair_reading(compute_dtype):
+        kw = dict(param_dtype=torch.bfloat16, compute_dtype=compute_dtype,
+                  device="cuda")
+        k_b, p_b = build(cfg, **kw), build(cfg, impl="plain", **kw)
+        lk, ck = k_b.prefill(params, batch)
+        lp, cp = p_b.prefill(params, batch)
+        lc, cc = p_b.prefill(without_bonus(params), batch)
+        return (max(rel_max(lk, lp), rwkv_states_rel(torch, ck, cp)),
+                max(rel_max(lc, lp), rwkv_states_rel(torch, cc, cp)))
+
+    sound, control = pair_reading(torch.float32)
+    sound16, control16 = pair_reading(torch.bfloat16)
+
+    # continuity at fp32 compute: the kernel's final state into decode
+    f32 = build(cfg, param_dtype=torch.bfloat16,
+                compute_dtype=torch.float32, device="cuda")
+    toks = batch["tokens"]
+    n = RWKV_PLEN - RWKV_CONT
+    lw, cw = f32.prefill(params, {"tokens": toks})
+    _, cn = f32.prefill(params, {"tokens": toks[:, :n]})
+    _, cs = f32.prefill(params, {"tokens": toks[:, 1:n + 1]})
+    for t in range(n, RWKV_PLEN):
+        ln, cn = f32.decode_step(params, toks[:, t], cn)
+        ls, cs = f32.decode_step(params, toks[:, t], cs)
+    cont = max(rel_max(ln, lw), rwkv_states_rel(torch, cn, cw))
+    cont_ctrl = max(rel_max(ls, lw), rwkv_states_rel(torch, cs, cw))
+    del cw, cn, cs
+    print(f"phase 17 rwkv kernel vs plain prefill (one wave, 24 layers' "
+          f"states and the logits, max|diff|/max|ref|) at fp32 compute: "
+          f"{sound:.4e} (limit {RWKV_PLAIN_TOL}), control bonus u dropped "
+          f"{control:.4e} (must exceed); at bf16 compute, reported: "
+          f"{sound16:.4e}, control {control16:.4e}; continuity "
+          f"prefill({n}) + {RWKV_CONT} decode steps vs prefill({RWKV_PLEN}) "
+          f"at fp32 compute: {cont:.4e} (limit {RWKV_CONT_TOL}), control "
+          f"state of the prompt shifted by one token {cont_ctrl:.4e} (must "
+          f"exceed)")
+    # the WKV forward at the prefill's shape and type (w is fp32, so the
+    # wrapper promotes r, k, v: the kernel runs in fp32)
+    b, s, h, d = RWKV_SLOTS, RWKV_PLEN, cfg.ssm_heads, cfg.resolved_head_dim
+    r, k, v, w, u, s0, _, _ = wkv_inputs(torch, b, s, h, d, torch.float32,
+                                         170)
+    s0 = torch.zeros_like(s0)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    (fb, fby, fbytes), _ = wkv_bound(b, s, h, d, 4)
+    ckpt_bytes = b * h * (-(-s // 64)) * d * d * 4
+    fb_ck = (fbytes + ckpt_bytes) / HBM_BYTES_PER_S * 1e3
+    t = dict(
+        ms=time_ms(torch, lambda: rwkv6_wkv_forward(r, k, v, w, u, s0),
+                   flush, 10, sleep=WKV_FWD_SLEEP_CYCLES),
+        plain_ms=time_ms(torch, lambda: kref.rwkv6_wkv_forward_plain(
+            r, k, v, w, u, s0), flush, 2),
+        bound_ms=fb, bound_by=fby, bound_ms_with_checkpoints=fb_ck,
+        library_ms=None)
+    print(f"phase 17 WKV forward at the prefill's shape [{b}, {s}, {h}, "
+          f"{d}] fp32, s0 zeros (L2 flushed): ms={fmt_ms(t['ms'])} "
+          f"plain_ms={fmt_ms(t['plain_ms'])} bound_ms={fb:.4f} ({fby}, "
+          f"{fbytes} B) with the {ckpt_bytes} B of checkpoints "
+          f"{fb_ck:.4f}; library: none")
+    del params
+    return {"rwkv6_wkv_forward": launches}, t
+
+
+def mla_moe_profile(torch, np, bundle, params, engine):
+    """Device time of one decode step over the 8 slots by class (ranges
+    around the latent gather, the absorbed attend, the routed MoE chunk
+    and its expert products), GEMM kernels by name, and the idle share
+    against an unprofiled step's wall."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import attention as att
+    from repro_torch.models import moe
+    slots, maxp = engine.slots, engine.max_pages_per_seq
+    tables = (torch.arange(slots * maxp, dtype=torch.int32, device="cuda")
+              .reshape(slots, maxp) + 1)
+    lengths = torch.tensor([2000, 1900, 1500, 1200, 900, 600, 300, 100],
+                           dtype=torch.int32, device="cuda")
+    toks = torch.tensor(np.random.default_rng(3).integers(
+        0, bundle.cfg.vocab_size, size=slots), dtype=torch.int32,
+        device="cuda")
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+
+    def step():
+        return bundle.decode_step_paged(params, toks, engine.pages, tables,
+                                        lengths, active)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    names = {(att, "_gather_latent"): "mla_gather",
+             (att, "_mla_absorbed_attend"): "mla_attend",
+             (moe, "_route_chunk"): "moe_route",
+             (moe, "_expert_ffn"): "moe_experts"}
+    saved = {key: getattr(*key) for key in names}
+
+    def ranged(fn, label):
+        def run(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return run
+    try:
+        for (mod, fn), label in names.items():
+            setattr(mod, fn, ranged(saved[(mod, fn)], label))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        for (mod, fn), f in saved.items():
+            setattr(mod, fn, f)
+    ranges = {label: 0.0 for label in names.values()}
+    busy = gemm = 0.0
+    for ev in prof.key_averages():
+        dev = ev.device_time_total
+        if ev.key in ranges and "CPU" in str(ev.device_type):
+            ranges[ev.key] += dev
+        elif "CUDA" in str(ev.device_type) and ev.self_device_time_total > 0:
+            if ev.key in ranges:
+                continue
+            busy += ev.self_device_time_total
+            if any(k in ev.key.lower() for k in ("gemm", "gemv", "cutlass",
+                                                 "sm90_", "cublas",
+                                                 "nvjet")):
+                gemm += ev.self_device_time_total
+    if busy <= 0:
+        print("phase 18 profile: the profiler saw no device time (device "
+              "breakdown not measured)")
+        return
+    cls = {"mla_gather": ranges["mla_gather"],
+           "mla_attend": ranges["mla_attend"],
+           "moe_dispatch": ranges["moe_route"] - ranges["moe_experts"],
+           "moe_experts": ranges["moe_experts"]}
+    cls["rest"] = busy - sum(cls.values())
+    print(f"phase 18 profile (one decode step, 8 active slots, lengths "
+          f"100..2000): wall_ms={wall_us / 1e3:.3f} device_ms="
+          f"{busy / 1e3:.3f} idle_share={1 - busy / wall_us:.3f} "
+          + " ".join(f"{k}_ms={v / 1e3:.3f} ({v / busy:.3f})"
+                     for k, v in cls.items())
+          + f" gemm_kernels_ms={gemm / 1e3:.3f} ({gemm / busy:.3f})")
+
+
+def phase_mla_moe_serve(torch, np):
+    """Phase 18: deepseek-v2-lite-16b at full width and depth (one dense
+    layer, 26 MoE), bf16, through PagedServeEngine (8 slots, pages of 16,
+    chunks of 256): MOE_REQS seeded requests of 256..2048 tokens, budgets
+    32..64, at the config's capacity factor.  Then dense against paged at
+    a dropless capacity factor, fp32 compute and fp32 caches over the
+    same params, on 4 requests of 1024 tokens: the first decode step's logits within
+    MOE_DENSE_TOL (control: the paged step attending one page short), and
+    the greedy agreement."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serve import (GenerationConfig, PagedServeEngine,
+                                   ServeEngine)
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    t0 = time.perf_counter()
+    bundle = build(cfg, param_dtype=torch.bfloat16,
+                   cache_dtype=torch.bfloat16, device="cuda")
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(18)
+    plens = [int(n) for n in rng.integers(256, 2049, size=MOE_REQS)]
+    budgets = [int(n) for n in rng.integers(32, 65, size=MOE_REQS)]
+    reqs = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in plens]
+    engine = PagedServeEngine(
+        bundle, params, slots=8, page_size=16,
+        max_len=max(p + n for p, n in zip(plens, budgets)),
+        prefill_chunk=256, cache_dtype=torch.bfloat16,
+        gen=GenerationConfig(max_new_tokens=64))
+    decode_ms, prefill_ms = [], []
+    engine._decode = sync_timed(torch, engine._decode, decode_ms)
+    engine._prefill_chunk = sync_timed(torch, engine._prefill_chunk,
+                                       prefill_ms)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = engine.serve_queue(reqs, max_new=budgets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s = engine.steady_state_summary()
+    if [r.steps for r in res] != budgets or not all(
+            ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
+            for r in res):
+        fail("phase 18: a request's tokens missed its budget or the vocab")
+    if s["refill_events"] < 1:
+        fail("phase 18: no slot was refilled")
+    tokens = sum(r.steps for r in res)
+    print(f"phase 18 serve deepseek-v2-lite-16b full width and depth bf16 "
+          f"({n_params} params, init {init_s:.1f}s; PagedServeEngine, 8 "
+          f"slots, pages of 16, chunks of 256, capacity factor "
+          f"{cfg.capacity_factor}): requests={len(res)} tokens={tokens} "
+          f"wall_s={wall:.3f} tokens_per_s={tokens / wall:.2f} "
+          f"decode_steps={engine.decode_calls} decode_ms_median="
+          f"{statistics.median(decode_ms):.3f} prefill_chunks="
+          f"{len(prefill_ms)} prefill_ms_median="
+          f"{statistics.median(prefill_ms):.3f} peak_mem_gib={peak:.2f} "
+          f"peak_pages_in_use={s['peak_pages_in_use']}/{s['pool_pages']} "
+          f"refill_events={s['refill_events']}")
+    mla_moe_profile(torch, np, bundle, params, engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # dense against paged, dropless, fp32 compute over the same params
+    dl = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    f32 = build(dl, param_dtype=torch.bfloat16, compute_dtype=torch.float32,
+                cache_dtype=torch.float32, device="cuda")
+    first = {}
+
+    def first_logits(tag, fn):
+        def run(*a, **k):
+            lg, cache = fn(*a, **k)
+            first.setdefault(tag, lg.float())
+            return lg, cache
+        return run
+
+    reqs4 = [rng.integers(0, cfg.vocab_size, size=MOE_CMP_PLEN)
+             .astype(np.int32) for _ in range(4)]
+    gen = GenerationConfig(max_new_tokens=MOE_CMP_NEW)
+    dense = ServeEngine(dataclasses.replace(
+        f32, decode_step=first_logits("dense", f32.decode_step)), params,
+        max_len=MOE_CMP_PLEN + MOE_CMP_NEW, gen=gen)
+    dres = dense.serve_queue(reqs4, slots=4)
+    paged = PagedServeEngine(dataclasses.replace(
+        f32, decode_step_paged=first_logits("paged", f32.decode_step_paged)),
+        params, slots=4, page_size=16, max_len=MOE_CMP_PLEN + MOE_CMP_NEW,
+        prefill_chunk=256, cache_dtype=torch.float32, gen=gen)
+    pres = paged.serve_queue(reqs4)
+    dtoks = np.stack([r.tokens for r in dres])
+    ptoks = np.stack([r.tokens for r in pres])
+    sound = rel_max(first["paged"], first["dense"])
+    logits_ctrl = paged_one_page_short(torch, f32, params, reqs4, dtoks)
+    control = rel_max(logits_ctrl, first["dense"])
+    share, firstdiff = agreement(np, dtoks, ptoks)
+    print(f"phase 18 dense vs paged (capacity factor "
+          f"{dl.capacity_factor:.4f}, dropless; fp32 compute and caches "
+          f"over the bf16 params; 4 x {MOE_CMP_PLEN} tokens, {MOE_CMP_NEW} new): first "
+          f"tokens equal {bool((dtoks[:, 0] == ptoks[:, 0]).all())}; first "
+          f"decode step's logits max|diff|/max|logit| {sound:.4e} (limit "
+          f"{MOE_DENSE_TOL}), control attending one page short "
+          f"{control:.4e} (must exceed); greedy tokens equal {share:.4f}, "
+          f"first difference per request {firstdiff}")
+    if not (dtoks[:, 0] == ptoks[:, 0]).all():
+        fail("phase 18: the dense and paged prefills sampled different "
+             "first tokens")
+    if not math.isfinite(sound) or sound > MOE_DENSE_TOL:
+        fail(f"phase 18 dense vs paged first decode logits {sound:.4e} > "
+             f"{MOE_DENSE_TOL}")
+    if not control > MOE_DENSE_TOL:
+        fail(f"phase 18 control reads {control:.4e} <= {MOE_DENSE_TOL}")
+    del params, paged, dense
+    return {"tokens_per_s": tokens / wall, "peak_gib": peak}
+
+
+def paged_one_page_short(torch, bundle, params, reqs, dtoks):
+    """The first paged decode step of phase 18's comparison with every
+    slot's length one page short: a fresh pool, each prompt prefilled in
+    chunks of 256, then the step at lengths - 16 (it attends 16 fewer
+    prompt keys, at a rope position 16 early, and writes its latent over
+    position length - 16)."""
+    page, chunk = 16, 256
+    b = len(reqs)
+    maxp = -(-max(len(p) for p in reqs) // page) + 2
+    pages = bundle.init_paged_cache(1 + b * maxp, page)
+    tables = (torch.arange(b * maxp, dtype=torch.int32, device="cuda")
+              .reshape(b, maxp) + 1)
+    for i, p in enumerate(reqs):
+        for c0 in range(0, len(p), chunk):
+            toks = torch.tensor(p[None, c0:c0 + chunk], device="cuda")
+            _, pages = bundle.prefill_paged_chunk(params, toks, pages,
+                                                  tables[i:i + 1], c0)
+    lengths = torch.tensor([len(p) - page for p in reqs], dtype=torch.int32,
+                           device="cuda")
+    toks = torch.tensor(dtoks[:, 0], dtype=torch.int32, device="cuda")
+    lg, _ = bundle.decode_step_paged(params, toks, pages, tables, lengths,
+                                     torch.ones(b, dtype=torch.bool,
+                                                device="cuda"))
+    return lg.float()
+
+
 def np_isfinite(a) -> bool:
     import numpy as np
     return bool(np.isfinite(np.asarray(a)).all())
@@ -3835,6 +4508,9 @@ def main() -> None:
     cfg, _, params, engine, launches = timed("4", phase_serve, torch, np)
     timed("4b", phase_profile, torch, np, cfg, params, engine)
     timed("5", phase_logits, torch, np, cfg, params, engine)
+    dense_launches_serve, dense_attn = timed(
+        "4c", phase_dense_serve, torch, np, cfg, params, engine)
+    timed("5b", phase_logits_mean, torch, np, cfg, params, engine)
     # the engine's timing wrappers close over its bound methods, a cycle
     # that keeps the 32 GB of weights alive until the collector runs
     del cfg, params, engine, _
@@ -3862,15 +4538,28 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     vlm, vlm_attn, _ = timed("16", phase_vlm, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv_serve, rwkv_serve_t = timed("17", phase_rwkv_serve, torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("18", phase_mla_moe_serve, torch, np)
     print(f"phase seconds: {json.dumps(seconds)}")
-    # phase 16's bf16 launches and times at qwen2-vl's shape beside the
-    # attention kernels; phase 15's expert-leaf fire and phase 16's
-    # launches beside top-k
+    # phase 16's bf16 launches and times at qwen2-vl's shape and the
+    # serving phases' (4c, 17) at their prefill shapes beside the attention
+    # and WKV kernels; phase 15's expert-leaf fire and phase 16's launches
+    # beside top-k
+    serve_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     later = {
         "flash_attention_forward": {
             "bf16_launches": vlm["flash_attention_forward"],
-            **{f"bf16_{k}": vlm_attn[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+            **{f"bf16_{k}": vlm_attn[k] for k in serve_keys},
+            "serve_launches": dense_launches_serve["flash_attention_forward"],
+            **{f"serve_{k}": dense_attn[k] for k in serve_keys}},
+        "rwkv6_wkv_forward": {
+            "serve_launches": rwkv_serve["rwkv6_wkv_forward"],
+            **{f"serve_{k}": rwkv_serve_t[k] for k in serve_keys
+               + ("bound_ms_with_checkpoints",)}},
         "flash_attention_backward": {
             "bf16_launches": vlm["flash_attention_backward"],
             **{f"bf16_{k}": vlm_attn[f"bwd_{k}"] for k in (
@@ -3883,7 +4572,7 @@ def main() -> None:
 
     def entry(name, source, replaces, launches, numbers):
         # phase 14's launches beside each kernel its path runs, and
-        # phases 15 and 16's
+        # phases 4c and 15-17's
         extra = ({"elastic_launches": elastic[name]} if name in elastic
                  else {})
         extra.update(later.get(name, {}))

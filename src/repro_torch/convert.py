@@ -2,10 +2,12 @@
 
 ``params_from_jax(np_params, cfg)`` takes the JAX package's parameter
 pytree as a nested dict of numpy arrays (``jax.tree.map(np.asarray,
-params)``) and returns a state dict for the port's model
+params)``) and returns a state dict for the port's serving model
 (``repro_torch/models/transformer.py::DecoderLM``).  Stacked ``[L, ...]``
 layer leaves are split per layer (``layers/attn/wq`` row ``i`` becomes
-``layers.<i>.attn.wq``).
+``layers.<i>.attn.wq``, ``layers_dense/ffn/w_gate`` row ``i``
+``layers_dense.<i>.ffn.w_gate``).  The RWKV-6 LM serves from its training
+tree: :func:`train_params_from_jax`.
 
 ``train_params_from_jax(np_params, cfg)`` takes the same pytree as the
 LM training parameters of the port (dense GQA decoders and the RWKV-6
@@ -143,21 +145,26 @@ def _leaves(tree: Mapping[str, Any], prefix: str = ""
 def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig, *,
                     device="cuda") -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays -> the port's state dict."""
+    if cfg.family == "ssm":
+        raise ValueError(f"{cfg.name}: the RWKV LM serves from its training "
+                         f"tree; use train_params_from_jax")
     reason = serve_unsupported_reason(cfg)
     if reason:
         raise NotImplementedError(f"{cfg.name}: {reason}")
+    n_pre, n_main = _split_layers(cfg)
+    depth = {"layers": n_main, "layers_dense": n_pre}
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(np_params):
-        if path.startswith("layers."):
-            rest = path[len("layers."):]
-            stacked = np.asarray(leaf)
-            if stacked.shape[0] != cfg.n_layers:
-                raise ValueError(f"{path}: {stacked.shape[0]} layers "
-                                 f"stacked, config has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                out[f"layers.{i}.{rest}"] = _to_tensor(stacked[i], device)
-        else:
+        stack, _, rest = path.partition(".")
+        if stack not in depth:
             out[path] = _to_tensor(leaf, device)
+            continue
+        stacked = np.asarray(leaf)
+        if stacked.shape[0] != depth[stack]:
+            raise ValueError(f"{path}: {stacked.shape[0]} layers stacked, "
+                             f"config has {depth[stack]}")
+        for i in range(depth[stack]):
+            out[f"{stack}.{i}.{rest}"] = _to_tensor(stacked[i], device)
     return out
 
 

@@ -1,15 +1,16 @@
-"""Paged serving launcher (PyTorch port of ``repro/launch/serve.py``).
+"""Serving launcher (PyTorch port of ``repro/launch/serve.py``).
+
+  # on the CPU, reduced config, wave batching (ServeEngine):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+      --device cpu
+
+  # paged continuous batching (PagedServeEngine), with telemetry rows:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b \
+      --paged --device cpu --metrics-out serve.jsonl
 
   # on the card, full width (random weights from --seed):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b \
       --no-reduced --paged --param-dtype bfloat16 --requests 8 --slots 8
-
-  # on the CPU, reduced config:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b \
-      --reduced --paged --device cpu
-
-Only the ``--paged`` path (PagedServeEngine) is ported; the dense wave
-engine raises until it is (ROADMAP Queue 1: serving).
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import build
-from repro_torch.serve import GenerationConfig, PagedServeEngine
+from repro_torch.serve import GenerationConfig, PagedServeEngine, ServeEngine
+from repro_torch.telemetry import MetricsLogger
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,7 +44,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paged", action="store_true",
                     help="continuous batching over a paged KV cache "
-                         "(PagedServeEngine); the only path ported so far")
+                         "(PagedServeEngine) instead of wave batching")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged KV page size in tokens")
     ap.add_argument("--budget-mb", type=float, default=0.0,
@@ -55,12 +57,12 @@ def main(argv=None) -> None:
                          "kernel versions)")
     ap.add_argument("--param-dtype", default="float32",
                     choices=sorted(DTYPES))
+    ap.add_argument("--metrics-out", default=None,
+                    help="write telemetry rows (serve_step per decode "
+                         "step on the paged path, serve_summary per "
+                         "queue) to this JSONL file")
     args = ap.parse_args(argv)
 
-    if not args.paged:
-        raise NotImplementedError(
-            "the dense wave-batched ServeEngine is not ported yet "
-            "(ROADMAP Queue 1: serving); pass --paged")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available; pass "
@@ -78,12 +80,18 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     reqs = [rng.integers(0, cfg.vocab_size, size=args.prompt_len)
             .astype(np.int32) for _ in range(args.requests)]
+    logger = MetricsLogger(args.metrics_out) if args.metrics_out else None
     t0 = time.time()
-    budget = int(args.budget_mb * 2 ** 20) or None
-    engine = PagedServeEngine(
-        bundle, params, slots=args.slots, page_size=args.block_size,
-        max_len=max_len, budget_bytes=budget, gen=gen)
-    results = engine.serve_queue(reqs)
+    if args.paged:
+        budget = int(args.budget_mb * 2 ** 20) or None
+        engine = PagedServeEngine(
+            bundle, params, slots=args.slots, page_size=args.block_size,
+            max_len=max_len, budget_bytes=budget, gen=gen, metrics=logger)
+        results = engine.serve_queue(reqs)
+    else:
+        engine = ServeEngine(bundle, params, max_len=max_len, gen=gen,
+                             metrics=logger)
+        results = engine.serve_queue(reqs, slots=args.slots)
     dt = time.time() - t0
     total_new = sum(r.steps for r in results)
     total_steps = sum(r.decode_steps for r in results)
@@ -92,14 +100,19 @@ def main(argv=None) -> None:
               f"-> {r.tokens[:8]}")
     print(f"{len(results)} requests, {total_new} tokens / {total_steps} "
           f"decode steps in {dt:.1f}s on {device} ({total_new/dt:.1f} tok/s "
-          f"incl. pool allocation)")
-    print(f"pool: {engine.alloc.n_pages - 1} pages of {args.block_size} "
-          f"tokens, peak in use {engine.alloc.peak_in_use}")
+          f"incl. cache allocation)")
+    if args.paged:
+        print(f"pool: {engine.alloc.n_pages - 1} pages of "
+              f"{args.block_size} tokens, peak in use "
+              f"{engine.alloc.peak_in_use}")
     s = engine.steady_state_summary()
     print(f"steady-state: engine={s['engine']} tok/s={s['tokens_per_s']} "
           f"wasted={s['wasted_ratio']} occupancy={s['mean_occupancy']} "
           f"refills={s['refill_events']} "
           f"peak_pages={s['peak_pages_in_use']}/{s['pool_pages']}")
+    if logger is not None:
+        logger.close()
+        print(f"telemetry rows -> {args.metrics_out}")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 """Model zoo: ``build(cfg, **options)`` returns a ModelBundle.
 
-Ported so far: the dense GQA decoders (yi-34b, starcoder2-15b,
-deepseek-67b, mistral-large-123b) for training and paged serving; the MoE
-and MLA decoders (deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b), the
-M-RoPE VLM backbone (qwen2-vl-2b) and the RWKV-6 LM (rwkv6-1.6b) for
-training; other families, and the serving of those four, raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Ported so far, for training and for serving (dense and paged caches;
+the RWKV-6 LM through its constant-size state): the dense GQA decoders
+(yi-34b, starcoder2-15b, deepseek-67b, mistral-large-123b), the MoE and
+MLA decoders (deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b), the M-RoPE
+VLM backbone (qwen2-vl-2b) and the RWKV-6 LM (rwkv6-1.6b); other
+families raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -20,10 +21,13 @@ from repro_torch.models.transformer import (ModelBundle, build_decoder_lm,
 
 
 def build(cfg: ArchConfig, *, param_dtype=torch.float32, compute_dtype=None,
-          remat: bool = False, cache_dtype=torch.bfloat16, impl: str = "auto",
+          remat: bool = False, impl: str = "auto",
+          rolling_decode: bool = False, cache_dtype=torch.bfloat16,
           decode_impl: str = "auto", device="cuda",
           generator: Optional[torch.Generator] = None) -> ModelBundle:
-    """``impl`` picks the training kernels (attention, WKV);
+    """``impl`` picks the kernels of training and of the dense prefill
+    (attention, WKV); ``rolling_decode`` makes the decoders' dense cache
+    a circular buffer of ``cfg.long_context_window`` positions;
     ``decode_impl`` the paged decode attention: "auto" / "kernel" /
     "plain" (kernels/ops.py).  ``compute_dtype`` (None: ``param_dtype``)
     and ``remat`` are the reference's: fp32 compute over bf16 params
@@ -39,5 +43,6 @@ def build(cfg: ArchConfig, *, param_dtype=torch.float32, compute_dtype=None,
                              impl=impl, device=device, generator=generator)
     return build_decoder_lm(cfg, param_dtype=param_dtype,
                             compute_dtype=compute_dtype, remat=remat,
+                            rolling_decode=rolling_decode,
                             cache_dtype=cache_dtype, decode_impl=decode_impl,
                             impl=impl, device=device, generator=generator)

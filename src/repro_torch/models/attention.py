@@ -3,18 +3,21 @@
 Ported: the training attention (``full_attention``, which dispatches to
 ``kernels.ops.flash_attention`` under the reference's condition, and
 ``gqa_attention``), the masked attention core, GQA projections, the
-paged cache (``init_paged_kv``, ``paged_slot_coords``,
-``gqa_decode_paged``, ``gqa_prefill_paged_chunk``), and MLA for training
-(``mla_params``, ``mla_attention``), which attends with its own products
-in the reference and so in the port.  The dense-cache decode and MLA's
-caches and decode come with serving (ROADMAP Queue 1 item 6).  Products
-take the promoted type of their operands, as the reference's do.
+dense serving cache (``init_kv_cache``, ``prefill_kv_cache``,
+``gqa_decode``, full or rolling), the paged cache (``init_paged_kv``,
+``paged_slot_coords``, ``gqa_decode_paged``, ``gqa_prefill_paged_chunk``),
+and MLA for training (``mla_params``, ``mla_attention``) and serving
+(``init_mla_cache``, ``mla_prefill_cache``, ``mla_decode``, and the
+latent pages: ``init_paged_mla``, ``mla_decode_paged``,
+``mla_prefill_paged_chunk``), which attends with its own products in the
+reference and so in the port.  Products take the promoted type of their
+operands, as the reference's do.
 
-GQA projections are leaves named as the reference's: attributes of the
-serving path's :class:`GQA` module, or keys of the training path's dict
-(:func:`gqa_params`).  The reference returns a new pool from every step
-(JAX donates the old one); the port writes into the per-layer pool in
-place with ``index_put_`` and returns the same tensors.
+Parameters are read by the reference's leaf names, ``p["wq"]``, from the
+training path's dicts (:func:`gqa_params`) or the serving path's modules
+(``models/transformer.py::Leaves``), which index the same way.  The reference returns a new cache or pool from
+every step (JAX donates the old one); the port writes into the per-layer
+tensors in place and returns the same tensors.
 """
 from __future__ import annotations
 
@@ -22,11 +25,10 @@ import math
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.models.common import (apply_rope, dense_init, mm,
+from repro_torch.models.common import (apply_rope, dense_init, einsum, mm,
                                        rmsnorm, rmsnorm_init)
 
 NEG_INF = -1.0e30
@@ -125,36 +127,11 @@ def gqa_params(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
             "wo": dense_init(n_heads * head_dim, d_model, dtype, **kw)}
 
 
-class GQA(nn.Module):
-    """Projections named as the reference's leaves, ``[d_in, d_out]``."""
-
-    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
-                 head_dim: int, dtype=torch.float32, *, device,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        for name, w in gqa_params(d_model, n_heads, n_kv_heads, head_dim,
-                                  dtype, device=device,
-                                  generator=generator).items():
-            setattr(self, name, nn.Parameter(w))
-
-
-def gqa_init(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
-             dtype=torch.float32, *, device,
-             generator: Optional[torch.Generator] = None) -> GQA:
-    return GQA(d_model, n_heads, n_kv_heads, head_dim, dtype, device=device,
-               generator=generator)
-
-
-def _w(p, name: str) -> torch.Tensor:
-    """Leaf ``name`` of a module's attributes or of a dict of leaves."""
-    return p[name] if isinstance(p, Mapping) else getattr(p, name)
-
-
 def _project_qkv(p, x, n_heads, n_kv_heads, head_dim):
     b, s, _ = x.shape
-    q = mm(x, _w(p, "wq")).reshape(b, s, n_heads, head_dim)
-    k = mm(x, _w(p, "wk")).reshape(b, s, n_kv_heads, head_dim)
-    v = mm(x, _w(p, "wv")).reshape(b, s, n_kv_heads, head_dim)
+    q = mm(x, p["wq"]).reshape(b, s, n_heads, head_dim)
+    k = mm(x, p["wk"]).reshape(b, s, n_kv_heads, head_dim)
+    v = mm(x, p["wv"]).reshape(b, s, n_kv_heads, head_dim)
     return q, k, v
 
 
@@ -169,7 +146,71 @@ def gqa_attention(p: Mapping[str, torch.Tensor], x, cos, sin, *,
         k = apply_rope(k, cos[:, :, None], sin[:, :, None])
     out = full_attention(q, k, v, causal=causal, window=window, impl=impl)
     return mm(out.reshape(x.shape[0], x.shape[1], n_heads * head_dim),
-              _w(p, "wo"))
+              p["wo"])
+
+
+# --------------------------- dense cache ------------------------------ #
+#
+# One layer's cache is {"k", "v": [B, length, Hkv, D], "pos": tokens
+# written so far (a Python int)}: length is max_len, or the window for a
+# rolling cache, which writes at pos % window.  The reference's
+# dynamic_update_slice clamps a start past the end to the last slot; the
+# port clamps the same way, so a wave that decodes past max_len gives the
+# reference's tokens.
+
+def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
+                  dtype=torch.bfloat16, rolling: bool = False,
+                  window: int = 0, *, device) -> Dict:
+    length = window if rolling else max_len
+    shape = (batch, length, n_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": 0}
+
+
+def gqa_decode(p, x, cache: Dict, cos, sin, *, n_heads: int,
+               n_kv_heads: int, head_dim: int, rolling: bool = False
+               ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode against a dense cache.  x [B,1,d]; cos/sin
+    [B,1,head_dim//2] at the current position.  Slot i holds a real
+    token iff i <= pos, or i < min(pos + 1, length) once a rolling buffer
+    may have wrapped; the attend is the masked core, as the reference's
+    (no window: the reference's dense decode has none)."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    if cos is not None:
+        q = apply_rope(q, cos[:, :, None], sin[:, :, None])
+        k = apply_rope(k, cos[:, :, None], sin[:, :, None])
+    pos = cache["pos"]
+    length = cache["k"].shape[1]
+    slot = pos % length if rolling else min(pos, length - 1)
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    out = masked_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                           q_offset=min(pos, length - 1))
+    out = mm(out.reshape(b, 1, n_heads * head_dim), p["wo"])
+    return out, dict(cache, pos=pos + 1)
+
+
+def prefill_kv_cache(p, x, cos, sin, *, n_heads: int, n_kv_heads: int,
+                     head_dim: int, max_len: int, dtype=torch.bfloat16,
+                     rolling: bool = False, window: int = 0) -> Dict:
+    """The prompt's roped K/V laid into a fresh cache (a rolling one keeps
+    the last ``window`` and counts only those, as the reference does)."""
+    b, s, _ = x.shape
+    _, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    if cos is not None:
+        k = apply_rope(k, cos[:, :, None], sin[:, :, None])
+    cache = init_kv_cache(b, max_len, n_kv_heads, head_dim, dtype,
+                          rolling=rolling, window=window, device=x.device)
+    if rolling:
+        keep = min(s, window)
+        k, v = k[:, s - keep:], v[:, s - keep:]
+    n = k.shape[1]
+    cache["k"][:, :n] = k.to(dtype)
+    cache["v"][:, :n] = v.to(dtype)
+    cache["pos"] = n
+    return cache
 
 
 # --------------------------- paged cache ------------------------------ #
@@ -208,7 +249,7 @@ def _write_pages(pages: Pages, page_ids, offs, k, v) -> None:
         pool.permute(1, 2, 0, 3).index_put_(idx, val.to(pool.dtype))
 
 
-def gqa_decode_paged(p: GQA, x, pages: Pages, block_tables, lengths,
+def gqa_decode_paged(p, x, pages: Pages, block_tables, lengths,
                      active, cos, sin, *, n_heads: int, n_kv_heads: int,
                      head_dim: int, window: int = 0, impl: str = "auto"
                      ) -> Tuple[torch.Tensor, Pages]:
@@ -231,11 +272,11 @@ def gqa_decode_paged(p: GQA, x, pages: Pages, block_tables, lengths,
     att_len = lengths + active.to(lengths.dtype)
     out = kops.flash_decode(q[:, 0].contiguous(), pages["k"], pages["v"],
                             block_tables, att_len, window=window, impl=impl)
-    out = out.reshape(b, 1, n_heads * head_dim).to(x.dtype) @ p.wo
+    out = mm(out.reshape(b, 1, n_heads * head_dim).to(x.dtype), p["wo"])
     return out, pages
 
 
-def gqa_prefill_paged_chunk(p: GQA, x, pages: Pages, block_tables, base,
+def gqa_prefill_paged_chunk(p, x, pages: Pages, block_tables, base,
                             cos, sin, *, n_heads: int, n_kv_heads: int,
                             head_dim: int, window: int = 0
                             ) -> Tuple[torch.Tensor, Pages]:
@@ -263,7 +304,7 @@ def gqa_prefill_paged_chunk(p: GQA, x, pages: Pages, block_tables, base,
     vd = kref.gather_pages(pages["v"], tbl).to(q.dtype)
     # the reference's base is traced here, so it never takes the kernel
     out = masked_attention(q, kd, vd, window=window, q_offset=base)
-    out = out.reshape(b, c, n_heads * head_dim) @ p.wo
+    out = mm(out.reshape(b, c, n_heads * head_dim), p["wo"])
     return out, pages
 
 
@@ -318,8 +359,7 @@ def mla_attention(p, x, cos, sin, *, n_heads: int, kv_lora: int,
     ckv, kr = _mla_latents(p, x, cos, sin, eps)
     k_nope = mm(ckv, p["w_uk"]).reshape(b, s, n_heads, qk_nope)
     v = mm(ckv, p["w_uv"]).reshape(b, s, n_heads, v_dim)
-    # the reference's 1 / sqrt(n) in fp32, rounded twice as there
-    scale = float(1.0 / torch.tensor(float(qk_nope + qk_rope)).sqrt())
+    scale = _mla_scale(qk_nope, qk_rope)
 
     def attend_block(qn, qr, offset):
         """qn [b, qc, H, nope]; offset: the first query's position."""
@@ -340,3 +380,171 @@ def mla_attention(p, x, cos, sin, *, n_heads: int, kv_lora: int,
     else:
         out = attend_block(q_nope, q_rope, 0)
     return mm(out.reshape(b, s, n_heads * v_dim), p["wo"])
+
+
+# --------------------------- MLA caches -------------------------------- #
+#
+# The latent cache holds no head axis: ckv [B, T, kv_lora] and the shared
+# rope key [B, T, qk_rope], and the decode attends in latent space (the
+# absorbed formulation: w_uk folded into the query, w_uv into the
+# output), never materializing per-head K/V.
+
+def _mla_scale(qk_nope: int, qk_rope: int) -> float:
+    """The reference's 1 / sqrt(n) in fp32, rounded twice as there."""
+    return float(1.0 / torch.tensor(float(qk_nope + qk_rope)).sqrt())
+
+
+def init_mla_cache(batch: int, max_len: int, kv_lora: int, qk_rope: int,
+                   dtype=torch.bfloat16, *, device) -> Dict:
+    return {"ckv": torch.zeros((batch, max_len, kv_lora), dtype=dtype,
+                               device=device),
+            "k_rope": torch.zeros((batch, max_len, qk_rope), dtype=dtype,
+                                  device=device),
+            "pos": 0}
+
+
+def mla_prefill_cache(p, x, cos, sin, *, max_len: int, eps: float,
+                      dtype=torch.bfloat16) -> Dict:
+    b, s, _ = x.shape
+    ckv, kr = _mla_latents(p, x, cos, sin, eps)
+    cache = init_mla_cache(b, max_len, ckv.shape[-1], kr.shape[-1], dtype,
+                           device=x.device)
+    cache["ckv"][:, :s] = ckv.to(dtype)
+    cache["k_rope"][:, :s] = kr.to(dtype)
+    cache["pos"] = s
+    return cache
+
+
+def mla_decode(p, x, cache: Dict, cos, sin, *, n_heads: int, kv_lora: int,
+               qk_nope: int, qk_rope: int, v_dim: int, eps: float = 1e-5
+               ) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed one-token decode: scores and context in latent space, per
+    step O(T * kv_lora * H).  Position ``pos`` is written first (clamped
+    to the last slot, as the reference's update), then keys 0..pos are
+    attended."""
+    b = x.shape[0]
+    q_nope, q_rope = _mla_q(p, x, n_heads, qk_nope, qk_rope, cos, sin)
+    ckv_new, kr_new = _mla_latents(p, x, cos, sin, eps)        # [B,1,*]
+    pos = cache["pos"]
+    ckv, krc = cache["ckv"], cache["k_rope"]
+    slot = min(pos, ckv.shape[1] - 1)
+    ckv[:, slot] = ckv_new[:, 0].to(ckv.dtype)
+    krc[:, slot] = kr_new[:, 0].to(krc.dtype)
+    t = ckv.shape[1]
+    w_uk = p["w_uk"].reshape(kv_lora, n_heads, qk_nope)
+    q_lat = einsum("bhd,lhd->bhl", q_nope[:, 0], w_uk)
+    scores = (torch.einsum("bhl,btl->bht", q_lat, ckv.to(q_lat.dtype))
+              + torch.einsum("bhd,btd->bht", q_rope[:, 0],
+                             krc.to(q_rope.dtype))).float()
+    valid = (torch.arange(t, device=x.device) <= pos)[None, None]
+    scores = torch.where(valid, scores * _mla_scale(qk_nope, qk_rope),
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    ctx = torch.einsum("bht,btl->bhl", probs, ckv)              # [B,H,lora]
+    w_uv = p["w_uv"].reshape(kv_lora, n_heads, v_dim)
+    out = einsum("bhl,lhv->bhv", ctx.to(x.dtype), w_uv)
+    out = mm(out.reshape(b, 1, n_heads * v_dim), p["wo"])
+    return out, dict(cache, pos=pos + 1)
+
+
+# --------------------------- paged MLA --------------------------------- #
+#
+# Latent pages have no head axis: the pool is [P, page, kv_lora] and the
+# shared rope key [P, page, qk_rope], the same block-table indirection as
+# the GQA pool at a fraction of its bytes.  The decode step and the chunk
+# prefill both attend in latent space.
+
+def init_paged_mla(n_pages: int, page_size: int, kv_lora: int,
+                   qk_rope: int, dtype=torch.bfloat16, *, device) -> Pages:
+    return {"ckv": torch.zeros((n_pages, page_size, kv_lora), dtype=dtype,
+                               device=device),
+            "kr": torch.zeros((n_pages, page_size, qk_rope), dtype=dtype,
+                              device=device)}
+
+
+def _gather_latent(pages: torch.Tensor, block_tables) -> torch.Tensor:
+    """pages [P, page, R], tables [B, maxp] -> dense [B, maxp * page, R]."""
+    b, maxp = block_tables.shape
+    return pages[block_tables.long()].reshape(b, maxp * pages.shape[1],
+                                              pages.shape[2])
+
+
+def _mla_absorbed_attend(p, q_nope, q_rope, ckv_d, kr_d, mask, *,
+                         n_heads, kv_lora, qk_nope, qk_rope, v_dim):
+    """Absorbed-latent attention for S queries: q_nope [B,S,H,nope],
+    q_rope [B,S,H,rope]; ckv_d [B,T,lora], kr_d [B,T,rope]; mask [B,S,T]
+    bool.  Rows with no valid key (inactive slots) output zeros.
+    Returns [B, S, H * v_dim]."""
+    b, s = q_nope.shape[:2]
+    w_uk = p["w_uk"].reshape(kv_lora, n_heads, qk_nope)
+    q_lat = einsum("bshd,lhd->bshl", q_nope, w_uk)
+    scores = (torch.einsum("bshl,btl->bhst", q_lat, ckv_d.to(q_lat.dtype))
+              + torch.einsum("bshd,btd->bhst", q_rope,
+                             kr_d.to(q_rope.dtype))).float()
+    scores = torch.where(mask[:, None],
+                         scores * _mla_scale(qk_nope, qk_rope),
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(ckv_d.dtype)
+    ctx = torch.einsum("bhst,btl->bshl", probs, ckv_d)
+    ctx = torch.where(mask.any(-1)[:, :, None, None], ctx,
+                      torch.zeros_like(ctx))
+    w_uv = p["w_uv"].reshape(kv_lora, n_heads, v_dim)
+    out = einsum("bshl,lhv->bshv", ctx.to(q_nope.dtype), w_uv)
+    return out.reshape(b, s, n_heads * v_dim)
+
+
+def _write_latents(pages: Pages, page_ids, offs, ckv, kr) -> None:
+    """Scatter ckv/kr [..., R] into (page_ids, offs) [...] in place, as
+    :func:`_write_pages` does for K/V (page 0 takes inactive writes)."""
+    idx = (page_ids.long(), offs.long())
+    pages["ckv"].index_put_(idx, ckv.to(pages["ckv"].dtype))
+    pages["kr"].index_put_(idx, kr.to(pages["kr"].dtype))
+
+
+def mla_decode_paged(p, x, pages: Pages, block_tables, lengths, active,
+                     cos, sin, *, n_heads: int, kv_lora: int, qk_nope: int,
+                     qk_rope: int, v_dim: int, eps: float = 1e-5
+                     ) -> Tuple[torch.Tensor, Pages]:
+    """Absorbed one-token decode against latent pages (per-slot
+    lengths; see :func:`gqa_decode_paged`)."""
+    q_nope, q_rope = _mla_q(p, x, n_heads, qk_nope, qk_rope, cos, sin)
+    ckv_new, kr_new = _mla_latents(p, x, cos, sin, eps)        # [B,1,*]
+    page = pages["ckv"].shape[1]
+    page_ids, offs = paged_slot_coords(block_tables, lengths, active, page)
+    _write_latents(pages, page_ids, offs, ckv_new[:, 0], kr_new[:, 0])
+    ckv_d = _gather_latent(pages["ckv"], block_tables)
+    kr_d = _gather_latent(pages["kr"], block_tables)
+    att_len = lengths + active.to(lengths.dtype)
+    mask = (torch.arange(ckv_d.shape[1], device=x.device)[None]
+            < att_len[:, None])[:, None]
+    out = _mla_absorbed_attend(p, q_nope, q_rope, ckv_d, kr_d, mask,
+                               n_heads=n_heads, kv_lora=kv_lora,
+                               qk_nope=qk_nope, qk_rope=qk_rope,
+                               v_dim=v_dim)
+    return mm(out.to(x.dtype), p["wo"]), pages
+
+
+def mla_prefill_paged_chunk(p, x, pages: Pages, block_tables, base, cos,
+                            sin, *, n_heads: int, kv_lora: int,
+                            qk_nope: int, qk_rope: int, v_dim: int,
+                            eps: float = 1e-5) -> Tuple[torch.Tensor, Pages]:
+    """One prompt chunk of a paged MLA prefill (see
+    :func:`gqa_prefill_paged_chunk`)."""
+    b, c, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, n_heads, qk_nope, qk_rope, cos, sin)
+    ckv_new, kr_new = _mla_latents(p, x, cos, sin, eps)        # [B,C,*]
+    page = pages["ckv"].shape[1]
+    pos = base + torch.arange(c, device=x.device)              # [C]
+    tbl = block_tables.expand(b, block_tables.shape[1])
+    page_ids = tbl[:, pos // page]                               # [B,C]
+    offs = (pos % page)[None].expand(b, c)
+    _write_latents(pages, page_ids, offs, ckv_new, kr_new)
+    ckv_d = _gather_latent(pages["ckv"], tbl)
+    kr_d = _gather_latent(pages["kr"], tbl)
+    kpos = torch.arange(ckv_d.shape[1], device=x.device)[None, None]
+    mask = (kpos <= pos[None, :, None]).expand(b, c, ckv_d.shape[1])
+    out = _mla_absorbed_attend(p, q_nope, q_rope, ckv_d, kr_d, mask,
+                               n_heads=n_heads, kv_lora=kv_lora,
+                               qk_nope=qk_nope, qk_rope=qk_rope,
+                               v_dim=v_dim)
+    return mm(out.to(x.dtype), p["wo"]), pages

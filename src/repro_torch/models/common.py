@@ -11,7 +11,7 @@ Philox differ): parity tests carry the reference's weights across with
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -301,3 +301,18 @@ def scan_layers(body: Callable, carry, stacked_params: Params, *,
         else:
             carry = step(carry, lp, consts)
     return carry[0] if single else carry
+
+
+def scan_layers_with_cache(body: Callable, x, layers, cache: List):
+    """``x, cache[i] = body(x, layer_i, cache[i])`` over the layers in
+    order; returns (x, the new caches).  ``layers`` is a sequence of
+    per-layer params (a ``ModuleList``) or a stacked tree, sliced per
+    layer; ``cache`` a list of per-layer caches (the reference stacks them
+    on the layer dim and threads them through its scan)."""
+    new = []
+    for i, lc in enumerate(cache):
+        lp = tree_map(lambda a: a[i], layers) \
+            if isinstance(layers, Mapping) else layers[i]
+        x, lc = body(x, lp, lc)
+        new.append(lc)
+    return x, new

@@ -10,12 +10,18 @@ runs through ``kernels.ops.rwkv6_wkv`` (the hand-written CUDA kernels on
 the card, forward and backward; the plain versions on the CPU).  Token
 shift uses the paper's ddlerp.  Parameters are dicts with the reference's
 keys; products take the promoted type of their operands, as the
-reference's do (fp32 compute over bf16 parameters).  The one-token decode (``timemix_decode``, ``block_decode``) is not
-ported yet: ROADMAP Queue 1 item 6.
+reference's do (fp32 compute over bf16 parameters).
+
+Serving carries a per-layer state (``init_block_state``): the two token
+shifts [B, d] and the WKV state [B, H, Dh, Dh], all fp32, the state
+indexed [j, i] as ``kernels/ops.py::rwkv6_wkv`` documents.  A prefill
+runs the prompt through the kernel from that state and keeps its final
+state; the one-token decode (``block_decode``) is the recurrence in
+plain products, as in the reference, O(1) per token.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,6 +115,31 @@ def timemix_apply(p: Params, x: torch.Tensor, *, n_heads: int,
     return out, x[:, -1].float(), new_state
 
 
+def timemix_decode(p: Params, x: torch.Tensor, state, *, n_heads: int,
+                   head_dim: int, eps: float):
+    """One token.  x [B, 1, d]; state {"shift" [B, d], "wkv" [B, H, Dh,
+    Dh]} fp32.  Returns (out [B, 1, d], the new state)."""
+    b = x.shape[0]
+    xs = state["shift"][:, None].to(x.dtype)
+    xw, xk, xv, xr, xg = _ddlerp(p, x, xs)
+    r = mm(xr, p["wr"]).reshape(b, n_heads, head_dim).float()
+    k = mm(xk, p["wk"]).reshape(b, n_heads, head_dim).float()
+    v = mm(xv, p["wv"]).reshape(b, n_heads, head_dim).float()
+    g = F.silu(mm(xg, p["wg"]))
+    dec = p["decay_base"].float() + \
+        mm(torch.tanh(mm(xw, p["decay_A"])), p["decay_B"]).float()
+    w = torch.exp(-torch.exp(dec)).reshape(b, n_heads, head_dim)
+    u = p["u"].float().reshape(n_heads, head_dim)
+    S = state["wkv"]                                    # [B,H,Dh,Dh]
+    kv = k[..., :, None] * v[..., None, :]
+    y = torch.einsum("bhj,bhji->bhi", r, S + u[None, :, :, None] * kv)
+    new_S = w[..., :, None] * S + kv
+    y = layernorm(p["ln_out"], y.reshape(b, 1, n_heads * head_dim)
+                  .to(x.dtype), eps)
+    out = mm(y * g, p["wo"])
+    return out, {"shift": x[:, 0].float(), "wkv": new_S}
+
+
 def channelmix_init(d_model: int, d_ff: int, dtype=torch.float32, *, device,
                     generator: Optional[torch.Generator] = None) -> Params:
     kw = dict(device=device, generator=generator)
@@ -131,6 +162,16 @@ def channelmix_apply(p: Params, x: torch.Tensor, shift_state=None):
     return out, x[:, -1].float()
 
 
+def channelmix_decode(p: Params, x: torch.Tensor, shift_state):
+    """One token: x [B, 1, d], shift_state [B, d] fp32."""
+    dx = shift_state[:, None].to(x.dtype) - x
+    xk = x + dx * p["mu_k"].to(x.dtype)
+    xr = x + dx * p["mu_r"].to(x.dtype)
+    k = torch.square(F.relu(mm(xk, p["wk"])))
+    out = torch.sigmoid(mm(xr, p["wr"])) * mm(k, p["wv"])
+    return out, x[:, 0].float()
+
+
 def block_init(d_model: int, d_ff: int, n_heads: int, head_dim: int,
                dtype=torch.float32, *, device,
                generator: Optional[torch.Generator] = None) -> Params:
@@ -151,3 +192,26 @@ def block_apply(p: Params, x: torch.Tensor, *, n_heads: int, head_dim: int,
     x = x + h
     h, _ = channelmix_apply(p["cm"], rmsnorm(p["ln2"]["scale"], x, eps))
     return x + h
+
+
+def block_decode(p: Params, x: torch.Tensor, state, *, n_heads: int,
+                 head_dim: int, eps: float):
+    """One token through a block.  state: :func:`init_block_state`'s."""
+    h, tm = timemix_decode(p["tm"], rmsnorm(p["ln1"]["scale"], x, eps),
+                           {"shift": state["tm_shift"], "wkv": state["wkv"]},
+                           n_heads=n_heads, head_dim=head_dim, eps=eps)
+    x = x + h
+    h, cm_shift = channelmix_decode(p["cm"], rmsnorm(p["ln2"]["scale"], x,
+                                                     eps),
+                                    state["cm_shift"])
+    return x + h, {"tm_shift": tm["shift"], "wkv": tm["wkv"],
+                   "cm_shift": cm_shift}
+
+
+def init_block_state(batch: int, d_model: int, n_heads: int, head_dim: int,
+                     *, device) -> Dict[str, torch.Tensor]:
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return {"tm_shift": zeros(batch, d_model),
+            "wkv": zeros(batch, n_heads, head_dim, head_dim),
+            "cm_shift": zeros(batch, d_model)}

@@ -18,38 +18,43 @@ the backward (``models.common.scan_layers``).  As in the reference, a
 compute type narrower than the parameters' is refused with ``TypeError``
 when the model runs.
 
-Serving keeps an ``nn.ModuleList`` of layers (``init``) whose parameter
-names are the reference's leaf paths (``layers.<i>.attn.wq`` for
-``layers/attn/wq`` row ``i``), so ``repro_torch/convert.py`` carries
-weights across by splitting the stacks; the paged pool is a list of
-per-layer ``{"k", "v"}`` tensors, updated in place.  Ported:
-``init_paged_cache``, ``prefill_paged_chunk`` and ``decode_step_paged``
-for dense GQA decoders (with or without a sliding window).  The non-paged
-prefill and decode, the serving of MoE, MLA, VLM and RWKV models, and the
-other families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+Serving keeps a module tree (``init``, :class:`DecoderLM`) whose
+parameter names are the reference's leaf paths (``layers.<i>.attn.wq``
+for ``layers/attn/wq`` row ``i``, ``layers_dense.<i>.ffn.w_gate`` for the
+dense layers before a MoE stack), so ``repro_torch/convert.py`` carries
+weights across by splitting the stacks.  Every trained decoder serves:
+dense GQA (with or without a sliding window), MLA, MoE and M-RoPE, through
+the dense cache (``init_cache``, ``prefill``, ``decode_step``; full or
+rolling) and the paged pool (``init_paged_cache``,
+``prefill_paged_chunk``, ``decode_step_paged``).  Caches are lists of
+per-layer dicts, updated in place.  The RWKV-6 LM serves from its
+training tree through a constant-size state (``prefill`` through the WKV
+kernel, ``decode_step`` in plain products); it has no paged path, as in
+the reference.  The serving entry points run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import rwkv6 as rwk
-from repro_torch.models.attention import (GQA, Pages, gqa_attention,
-                                          gqa_decode_paged, gqa_params,
-                                          gqa_prefill_paged_chunk,
-                                          init_paged_kv, mla_attention,
-                                          mla_params)
+from repro_torch.models.attention import (
+    Pages, gqa_attention, gqa_decode, gqa_decode_paged, gqa_params,
+    gqa_prefill_paged_chunk, init_kv_cache, init_mla_cache, init_paged_kv,
+    init_paged_mla, mla_attention, mla_decode, mla_decode_paged,
+    mla_params, mla_prefill_cache, mla_prefill_paged_chunk,
+    prefill_kv_cache)
 from repro_torch.models.common import (Params, dense_init, embed_init, mm,
                                        mrope_cos_sin, rmsnorm, rmsnorm_init,
                                        rope_cos_sin, scan_layers,
+                                       scan_layers_with_cache,
                                        softmax_cross_entropy, stacked_init,
                                        text_positions)
-from repro_torch.models.mlp import MLP, mlp_apply, mlp_params
+from repro_torch.models.mlp import mlp_apply, mlp_params
 from repro_torch.models.moe import moe_apply, moe_params
 
 
@@ -65,17 +70,11 @@ def train_unsupported_reason(cfg: ArchConfig) -> Optional[str]:
 
 
 def serve_unsupported_reason(cfg: ArchConfig) -> Optional[str]:
-    """Why the port cannot serve ``cfg`` (None if it can)."""
+    """Why the port cannot serve ``cfg`` (None if it can): every family
+    it trains serves."""
     if cfg.family == "ssm":
-        return ("family 'ssm' is the RWKV LM (build_rwkv_lm), which trains "
-                "but does not serve yet (ROADMAP Queue 1 item 6)")
-    reason = train_unsupported_reason(cfg)
-    if reason:
-        return reason
-    if cfg.uses_moe or cfg.kv_lora_rank or cfg.mrope or cfg.family == "vlm":
-        return ("MoE, MLA and M-RoPE decoders train but do not serve yet "
-                "(ROADMAP Queue 1 item 6)")
-    return None
+        return None
+    return train_unsupported_reason(cfg)
 
 
 def _check_compute_dtype(param_dtype, compute_dtype):
@@ -93,43 +92,68 @@ def _check_compute_dtype(param_dtype, compute_dtype):
 
 
 # ===================================================================== #
-# decoder layer (dense GQA)
+# serving layout
 # ===================================================================== #
 
-class RMSNorm(nn.Module):
-    def __init__(self, d: int, dtype, *, device):
+class Leaves(nn.Module):
+    """A nested tree of leaves as a module: dicts become submodules,
+    lists ``ModuleList`` s, tensors parameters, under the tree's keys.
+    Indexing by key reads the attribute, so the layer functions, written
+    against the training path's dicts, read a module the same way."""
+
+    def __init__(self, tree: Mapping):
         super().__init__()
-        self.scale = nn.Parameter(rmsnorm_init(d, dtype, device=device))
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                v = Leaves(v)
+            elif isinstance(v, (list, tuple)):
+                v = nn.ModuleList([Leaves(x) for x in v])
+            else:
+                v = nn.Parameter(v)
+            setattr(self, k, v)
+
+    def __getitem__(self, name: str):
+        if name not in self:
+            raise KeyError(name)
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
 
-class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ArchConfig, dtype, *, device,
-                 generator: Optional[torch.Generator]):
-        super().__init__()
-        kw = dict(device=device, generator=generator)
-        self.ln1 = RMSNorm(cfg.d_model, dtype, device=device)
-        self.attn = GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.resolved_head_dim, dtype, **kw)
-        self.ln2 = RMSNorm(cfg.d_model, dtype, device=device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, **kw)
+class DecoderLayer(Leaves):
+    """One layer's leaves (:func:`layer_params`) as a module."""
+
+    def __init__(self, cfg: ArchConfig, dtype, *, use_moe: bool = False,
+                 device, generator: Optional[torch.Generator]):
+        super().__init__(layer_params(cfg, dtype, use_moe=use_moe,
+                                      device=device, generator=generator))
 
 
-class DecoderLM(nn.Module):
+class DecoderLM(Leaves):
     """Parameters: ``embed`` [V, d], ``final_norm.scale``, ``lm_head``
-    [d, V] (unless tied), ``layers`` (one :class:`DecoderLayer` each)."""
+    [d, V] (unless tied), ``layers`` (one :class:`DecoderLayer` each, MoE
+    where the config has experts) and, before a MoE stack, the dense
+    ``layers_dense``."""
 
     def __init__(self, cfg: ArchConfig, dtype, *, device,
                  generator: Optional[torch.Generator]):
-        super().__init__()
         kw = dict(device=device, generator=generator)
-        self.embed = nn.Parameter(embed_init(cfg.padded_vocab, cfg.d_model,
-                                             dtype, **kw))
-        self.final_norm = RMSNorm(cfg.d_model, dtype, device=device)
+        tree = {"embed": embed_init(cfg.padded_vocab, cfg.d_model, dtype,
+                                    **kw),
+                "final_norm": {"scale": rmsnorm_init(cfg.d_model, dtype,
+                                                     device=device)}}
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(dense_init(
-                cfg.d_model, cfg.padded_vocab, dtype, **kw))
+            tree["lm_head"] = dense_init(cfg.d_model, cfg.padded_vocab,
+                                         dtype, **kw)
+        super().__init__(tree)
+        n_pre, n_main = _split_layers(cfg)
         self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, dtype, **kw) for _ in range(cfg.n_layers)])
+            [DecoderLayer(cfg, dtype, use_moe=cfg.uses_moe, **kw)
+             for _ in range(n_main)])
+        if n_pre:
+            self.layers_dense = nn.ModuleList(
+                [DecoderLayer(cfg, dtype, **kw) for _ in range(n_pre)])
 
 
 # --------------------------- training ---------------------------------- #
@@ -208,33 +232,69 @@ def _split_layers(cfg: ArchConfig) -> Tuple[int, int]:
 
 # --------------------------- serving ----------------------------------- #
 
-def _layer_ffn(p: DecoderLayer, x, cfg: ArchConfig):
-    h = rmsnorm(p.ln2.scale, x, cfg.norm_eps)
-    return x + mlp_apply(p.ffn, h, cfg.act)
+def _attend_kw(cfg: ArchConfig):
+    if cfg.kv_lora_rank:
+        return dict(n_heads=cfg.n_heads, kv_lora=cfg.kv_lora_rank,
+                    qk_nope=cfg.qk_nope_head_dim,
+                    qk_rope=cfg.qk_rope_head_dim, v_dim=cfg.v_head_dim,
+                    eps=cfg.norm_eps)
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim)
 
 
-def layer_decode_paged(p: DecoderLayer, x, pages: Pages, block_tables,
-                       lengths, active, cos, sin, cfg: ArchConfig,
+def _layer_ffn(p, x, cfg: ArchConfig, use_moe: bool):
+    h = rmsnorm(p["ln2"]["scale"], x, cfg.norm_eps)
+    if use_moe:
+        f, _ = moe_apply(p["ffn"], h, n_experts=cfg.n_experts,
+                         top_k=cfg.top_k, act=cfg.act,
+                         capacity_factor=cfg.capacity_factor)
+    else:
+        f = mlp_apply(p["ffn"], h, cfg.act)
+    return x + f
+
+
+def layer_decode(p, x, cache, cos, sin, cfg: ArchConfig, use_moe: bool,
+                 rolling: bool):
+    """One layer of the dense-cache decode step."""
+    h = rmsnorm(p["ln1"]["scale"], x, cfg.norm_eps)
+    if cfg.kv_lora_rank:
+        a, cache = mla_decode(p["attn"], h, cache, cos, sin,
+                              **_attend_kw(cfg))
+    else:
+        a, cache = gqa_decode(p["attn"], h, cache, cos, sin,
+                              rolling=rolling, **_attend_kw(cfg))
+    return _layer_ffn(p, x + a, cfg, use_moe), cache
+
+
+def layer_decode_paged(p, x, pages: Pages, block_tables, lengths, active,
+                       cos, sin, cfg: ArchConfig, use_moe: bool,
                        decode_impl: str):
     """One layer of the paged decode step (per-slot positions)."""
-    h = rmsnorm(p.ln1.scale, x, cfg.norm_eps)
-    a, pages = gqa_decode_paged(
-        p.attn, h, pages, block_tables, lengths, active, cos, sin,
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, window=cfg.sliding_window,
-        impl=decode_impl)
-    return _layer_ffn(p, x + a, cfg), pages
+    h = rmsnorm(p["ln1"]["scale"], x, cfg.norm_eps)
+    if cfg.kv_lora_rank:
+        a, pages = mla_decode_paged(p["attn"], h, pages, block_tables,
+                                    lengths, active, cos, sin,
+                                    **_attend_kw(cfg))
+    else:
+        a, pages = gqa_decode_paged(
+            p["attn"], h, pages, block_tables, lengths, active, cos, sin,
+            window=cfg.sliding_window, impl=decode_impl, **_attend_kw(cfg))
+    return _layer_ffn(p, x + a, cfg, use_moe), pages
 
 
-def layer_prefill_paged(p: DecoderLayer, x, pages: Pages, block_tables,
-                        base, cos, sin, cfg: ArchConfig):
+def layer_prefill_paged(p, x, pages: Pages, block_tables, base, cos, sin,
+                        cfg: ArchConfig, use_moe: bool):
     """One layer of one paged-prefill chunk (positions base..base+C-1)."""
-    h = rmsnorm(p.ln1.scale, x, cfg.norm_eps)
-    a, pages = gqa_prefill_paged_chunk(
-        p.attn, h, pages, block_tables, base, cos, sin,
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, window=cfg.sliding_window)
-    return _layer_ffn(p, x + a, cfg), pages
+    h = rmsnorm(p["ln1"]["scale"], x, cfg.norm_eps)
+    if cfg.kv_lora_rank:
+        a, pages = mla_prefill_paged_chunk(p["attn"], h, pages,
+                                           block_tables, base, cos, sin,
+                                           **_attend_kw(cfg))
+    else:
+        a, pages = gqa_prefill_paged_chunk(
+            p["attn"], h, pages, block_tables, base, cos, sin,
+            window=cfg.sliding_window, **_attend_kw(cfg))
+    return _layer_ffn(p, x + a, cfg, use_moe), pages
 
 
 # ===================================================================== #
@@ -250,13 +310,19 @@ class ModelBundle:
       init_train(generator=None) -> the training tree (stacked leaves)
       forward(params, embeds, positions) -> (hidden [B,S,d], aux loss)
       loss_fn(params, batch)     -> (loss, metrics)  [tokens, labels]
-      prefill(params, batch), decode_step(params, tok, cache)
-                                 -> raise until ROADMAP Queue 1 item 6
-      init_paged_cache(n_pages, page_size) -> [ {"k", "v"} ] per layer
+      init_cache(batch, max_len) -> [ per-layer cache ]
+      prefill(params, batch)     -> (last-position logits [B,V], cache)
+                                    [tokens; max_len; vision_embeds and
+                                    positions for the VLM]
+      decode_step(params, tokens [B], cache) -> (logits [B,V], cache)
+      init_paged_cache(n_pages, page_size) -> [ per-layer pages ]
       prefill_paged_chunk(params, tokens [B,C], pages, tables, base)
           -> (logits [B,C,V], pages)
       decode_step_paged(params, tokens [B], pages, tables, lengths,
           active) -> (logits [B,V], pages)
+
+    The paged entry points are None for the RWKV LM, whose state has a
+    constant size, as in the reference.
     """
     cfg: ArchConfig
     device: torch.device
@@ -266,22 +332,10 @@ class ModelBundle:
     loss_fn: Optional[Callable] = None
     prefill: Optional[Callable] = None
     decode_step: Optional[Callable] = None
+    init_cache: Optional[Callable] = None
     init_paged_cache: Optional[Callable] = None
     prefill_paged_chunk: Optional[Callable] = None
     decode_step_paged: Optional[Callable] = None
-
-
-def _not_ported(what: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                                  f"Queue 1 item 6)")
-    return refuse
-
-
-def _refused(cfg: ArchConfig, reason: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{cfg.name}: {reason}")
-    return refuse
 
 
 def _generator(gen, default, device) -> Optional[torch.Generator]:
@@ -294,35 +348,37 @@ def _generator(gen, default, device) -> Optional[torch.Generator]:
     return torch.Generator(device=device).manual_seed(0)
 
 
-def _unembed(params: DecoderLM, cfg: ArchConfig, x):
+def _unembed(params, cfg: ArchConfig, x):
     if cfg.tie_embeddings:
-        return x @ params.embed.T
-    return x @ params.lm_head
+        return mm(x, params["embed"].T)
+    return mm(x, params["lm_head"])
 
 
 def build_decoder_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
                      compute_dtype=None, remat: bool = False,
+                     rolling_decode: bool = False,
                      cache_dtype=torch.bfloat16, decode_impl: str = "auto",
                      impl: str = "auto", device="cuda",
                      generator: Optional[torch.Generator] = None
                      ) -> ModelBundle:
-    """Dense, MoE, MLA and VLM decoders.  ``impl`` picks the training
-    attention (kernels/ops.py::flash_attention: "auto" / "kernel" /
-    "plain"); ``decode_impl`` the paged decode attention (kernels/ops.py::
-    flash_decode), and only affects ``decode_step_paged``.  The pool's
-    dtype is ``cache_dtype`` (bf16 by default, even with fp32 params).
+    """Dense, MoE, MLA and VLM decoders.  ``impl`` picks the attention of
+    training and of the dense prefill (kernels/ops.py::flash_attention:
+    "auto" / "kernel" / "plain"); ``decode_impl`` the paged decode
+    attention (kernels/ops.py::flash_decode), and only affects
+    ``decode_step_paged``.  Caches and pools are ``cache_dtype`` (bf16 by
+    default, even with fp32 params); ``rolling_decode`` makes the dense
+    GQA cache a circular buffer of ``cfg.long_context_window`` positions.
     ``compute_dtype`` (None: ``param_dtype``) is the activations' type and
-    ``remat`` recomputes each layer in the backward, as in the reference.
-    MoE, MLA and VLM decoders train; their serving entry points raise."""
+    ``remat`` recomputes each layer in the backward, as in the
+    reference."""
     reason = train_unsupported_reason(cfg)
     if reason:
         raise NotImplementedError(f"{cfg.name}: {reason}")
-    serve_reason = serve_unsupported_reason(cfg)
     device = torch.device(device)
     compute_dtype = compute_dtype or param_dtype
-    hd = cfg.resolved_head_dim
     window = cfg.sliding_window
     n_pre, n_main = _split_layers(cfg)
+    roll_w = cfg.long_context_window if rolling_decode else 0
 
     def init(gen: Optional[torch.Generator] = None) -> DecoderLM:
         return DecoderLM(cfg, param_dtype, device=device,
@@ -369,7 +425,7 @@ def build_decoder_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
                              remat=remat, consts=(cos, sin))
         return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps), aux
 
-    def _embed_batch(params: Params, batch):
+    def _embed_batch(params, batch):
         """(embeds [B,S,d], positions, label offset): vision embeddings go
         in front of the text's, with the batch's M-RoPE positions."""
         tokens = batch["tokens"]
@@ -399,50 +455,132 @@ def build_decoder_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
         metrics["loss"] = loss
         return loss, metrics
 
-    def init_paged_cache(n_pages: int, page_size: int) -> List[Pages]:
-        return [init_paged_kv(n_pages, page_size, cfg.n_kv_heads, hd,
-                              cache_dtype, device=device)
+    # ------------------------- serving ------------------------------- #
+    # The dense prefix's caches come first, then the main stack's, as the
+    # reference concatenates its two stacked caches.
+
+    def _run_layers(params, x, caches, body):
+        """``body(x, layer, cache, use_moe)`` over the dense prefix then
+        the main stack; ``caches`` covers all layers in that order."""
+        new = []
+        stacks = [(params["layers_dense"], False)] if n_pre else []
+        for layers, use_moe in stacks + [(params["layers"], cfg.uses_moe)]:
+            x, c = scan_layers_with_cache(
+                lambda x, lp, lc: body(x, lp, lc, use_moe), x, layers,
+                caches[len(new):len(new) + len(layers)])
+            new += c
+        return x, new
+
+    def _positions_for(pos):
+        """pos [B,S] int32 -> rope positions ([B,S] or [B,S,3] M-RoPE)."""
+        return torch.stack([pos, pos, pos], dim=-1) if cfg.mrope else pos
+
+    def init_cache(batch: int, max_len: int) -> List:
+        if cfg.kv_lora_rank:
+            return [init_mla_cache(batch, max_len, cfg.kv_lora_rank,
+                                   cfg.qk_rope_head_dim, cache_dtype,
+                                   device=device)
+                    for _ in range(cfg.n_layers)]
+        return [init_kv_cache(batch, max_len, cfg.n_kv_heads,
+                              cfg.resolved_head_dim, cache_dtype,
+                              rolling=rolling_decode, window=roll_w,
+                              device=device)
                 for _ in range(cfg.n_layers)]
 
-    def prefill_paged_chunk(params: DecoderLM, tokens, pages: List[Pages],
+    @torch.no_grad()
+    def prefill(params, batch):
+        """The whole prompt (``batch["tokens"]`` [B,S], and for the VLM
+        ``vision_embeds`` and ``positions`` in front) -> (last-position
+        logits [B,V], the caches of ``batch["max_len"]`` positions)."""
+        embeds, positions, _ = _embed_batch(params, batch)
+        cos, sin = _rope_for(cfg, positions)
+        x = embeds.to(compute_dtype)
+        max_len = int(batch.get("max_len", x.shape[1]))
+
+        def body(x, lp, _, use_moe):
+            h = rmsnorm(lp["ln1"]["scale"], x, cfg.norm_eps)
+            if cfg.kv_lora_rank:
+                kw = _attend_kw(cfg)
+                a = mla_attention(lp["attn"], h, cos, sin, **kw)
+                cache = mla_prefill_cache(lp["attn"], h, cos, sin,
+                                          max_len=max_len, eps=kw["eps"],
+                                          dtype=cache_dtype)
+            else:
+                a = gqa_attention(lp["attn"], h, cos, sin, window=window,
+                                  impl=impl, **_attend_kw(cfg))
+                cache = prefill_kv_cache(
+                    lp["attn"], h, cos, sin, max_len=max_len,
+                    dtype=cache_dtype, rolling=rolling_decode,
+                    window=roll_w, **_attend_kw(cfg))
+            return _layer_ffn(lp, x + a, cfg, use_moe), cache
+
+        x, cache = _run_layers(params, x, [None] * cfg.n_layers, body)
+        h = rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
+        return _unembed(params, cfg, h[:, -1]), cache
+
+    @torch.no_grad()
+    def decode_step(params, tokens, cache):
+        """tokens [B] -> (logits [B,V], cache): every layer writes at the
+        same position, its cache's ``pos``."""
+        b = tokens.shape[0]
+        pos = torch.full((b, 1), cache[0]["pos"], dtype=torch.int32,
+                         device=tokens.device)
+        cos, sin = _rope_for(cfg, _positions_for(pos))
+        x = params["embed"][tokens.long()][:, None].to(compute_dtype)
+        x, cache = _run_layers(
+            params, x, cache, lambda x, lp, lc, use_moe: layer_decode(
+                lp, x, lc, cos, sin, cfg, use_moe, rolling_decode))
+        h = rmsnorm(params["final_norm"]["scale"], x[:, 0:1], cfg.norm_eps)
+        return _unembed(params, cfg, h[:, 0]), cache
+
+    def init_paged_cache(n_pages: int, page_size: int) -> List[Pages]:
+        if cfg.kv_lora_rank:
+            return [init_paged_mla(n_pages, page_size, cfg.kv_lora_rank,
+                                   cfg.qk_rope_head_dim, cache_dtype,
+                                   device=device)
+                    for _ in range(cfg.n_layers)]
+        return [init_paged_kv(n_pages, page_size, cfg.n_kv_heads,
+                              cfg.resolved_head_dim, cache_dtype,
+                              device=device)
+                for _ in range(cfg.n_layers)]
+
+    @torch.no_grad()
+    def prefill_paged_chunk(params, tokens, pages: List[Pages],
                             block_tables, base: int):
         """One prompt chunk: tokens [B,C] at positions base..base+C-1.
         Returns (logits [B,C,V], pages)."""
         b, c = tokens.shape
         pos = base + torch.arange(c, device=tokens.device).expand(b, c)
-        cos, sin = rope_cos_sin(pos.to(torch.int32), hd, cfg.rope_theta)
-        x = params.embed[tokens.long()].to(param_dtype)
-        for lp, lpg in zip(params.layers, pages):
-            x, _ = layer_prefill_paged(lp, x, lpg, block_tables, base,
-                                       cos, sin, cfg)
-        h = rmsnorm(params.final_norm.scale, x, cfg.norm_eps)
+        cos, sin = _rope_for(cfg, _positions_for(pos.to(torch.int32)))
+        x = params["embed"][tokens.long()].to(compute_dtype)
+        x, pages = _run_layers(
+            params, x, pages, lambda x, lp, lpg, use_moe:
+            layer_prefill_paged(lp, x, lpg, block_tables, base, cos, sin,
+                                cfg, use_moe))
+        h = rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
         return _unembed(params, cfg, h), pages
 
-    def decode_step_paged(params: DecoderLM, tokens, pages: List[Pages],
-                          block_tables, lengths, active):
+    @torch.no_grad()
+    def decode_step_paged(params, tokens, pages: List[Pages], block_tables,
+                          lengths, active):
         """One decode step over the slot array: tokens [B], per-slot
         ``lengths`` [B] (cached tokens so far, the position each slot's
         token is written at), ``active`` [B] bool.  Returns
         (logits [B,V], pages)."""
         pos = lengths.to(torch.int32)[:, None]               # [B,1]
-        cos, sin = rope_cos_sin(pos, hd, cfg.rope_theta)
-        x = params.embed[tokens.long()][:, None].to(param_dtype)
-        for lp, lpg in zip(params.layers, pages):
-            x, _ = layer_decode_paged(lp, x, lpg, block_tables, lengths,
-                                      active, cos, sin, cfg, decode_impl)
-        h = rmsnorm(params.final_norm.scale, x[:, 0:1], cfg.norm_eps)
+        cos, sin = _rope_for(cfg, _positions_for(pos))
+        x = params["embed"][tokens.long()][:, None].to(compute_dtype)
+        x, pages = _run_layers(
+            params, x, pages, lambda x, lp, lpg, use_moe:
+            layer_decode_paged(lp, x, lpg, block_tables, lengths, active,
+                               cos, sin, cfg, use_moe, decode_impl))
+        h = rmsnorm(params["final_norm"]["scale"], x[:, 0:1], cfg.norm_eps)
         return _unembed(params, cfg, h[:, 0]), pages
 
-    if serve_reason:
-        init = _refused(cfg, serve_reason)
-        init_paged_cache = _refused(cfg, serve_reason)
-        prefill_paged_chunk = _refused(cfg, serve_reason)
-        decode_step_paged = _refused(cfg, serve_reason)
     return ModelBundle(cfg=cfg, device=device, init=init,
                        init_train=init_train, forward=forward,
-                       loss_fn=loss_fn,
-                       prefill=_not_ported("the non-paged prefill"),
-                       decode_step=_not_ported("the non-paged decode step"),
+                       loss_fn=loss_fn, prefill=prefill,
+                       decode_step=decode_step, init_cache=init_cache,
                        init_paged_cache=init_paged_cache,
                        prefill_paged_chunk=prefill_paged_chunk,
                        decode_step_paged=decode_step_paged)
@@ -457,10 +595,13 @@ def build_rwkv_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
                   impl: str = "auto", device="cuda",
                   generator: Optional[torch.Generator] = None
                   ) -> ModelBundle:
-    """The RWKV-6 LM for training (``repro/models/transformer.py:513``).
-    ``impl`` picks the WKV recurrence (kernels/ops.py::rwkv6_wkv);
-    ``compute_dtype`` and ``remat`` are :func:`build_decoder_lm`'s.  Its
-    prefill and decode step raise until ROADMAP Queue 1 item 6."""
+    """The RWKV-6 LM (``repro/models/transformer.py:513``), for training
+    and for serving from the same tree.  ``impl`` picks the WKV recurrence
+    of training and of the prefill (kernels/ops.py::rwkv6_wkv: on CUDA
+    tensors the kernel, which starts from the cache's state and returns
+    the final one); the decode step is plain products, as in the
+    reference.  ``compute_dtype`` and ``remat`` are
+    :func:`build_decoder_lm`'s."""
     if cfg.family != "ssm":
         raise ValueError(f"{cfg.name}: build_rwkv_lm takes the 'ssm' family")
     device = torch.device(device)
@@ -496,7 +637,44 @@ def build_rwkv_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
         return softmax_cross_entropy(logits, batch["labels"],
                                      batch.get("mask"))
 
+    def init_cache(batch: int, max_len: int = 0) -> List:
+        return [rwk.init_block_state(batch, cfg.d_model, H, hd,
+                                     device=device)
+                for _ in range(cfg.n_layers)]
+
+    @torch.no_grad()
+    def prefill(params: Params, batch):
+        """The prompt through the recurrence from zero states; returns
+        (last-position logits [B,V], each layer's final states)."""
+        x = params["embed"][batch["tokens"].long()].to(compute_dtype)
+
+        def body(x, lp, st):
+            h_in = rmsnorm(lp["ln1"]["scale"], x, cfg.norm_eps)
+            h, tm_shift, wkv = rwk.timemix_apply(
+                lp["tm"], h_in, n_heads=H, head_dim=hd, eps=cfg.norm_eps,
+                wkv_state=st["wkv"], impl=impl)
+            x = x + h
+            h2, cm_shift = rwk.channelmix_apply(
+                lp["cm"], rmsnorm(lp["ln2"]["scale"], x, cfg.norm_eps))
+            return x + h2, {"tm_shift": tm_shift, "wkv": wkv,
+                            "cm_shift": cm_shift}
+
+        x, cache = scan_layers_with_cache(body, x, params["layers"],
+                                          init_cache(x.shape[0]))
+        h = rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
+        return mm(h[:, -1], params["lm_head"]), cache
+
+    @torch.no_grad()
+    def decode_step(params: Params, tokens, cache):
+        x = params["embed"][tokens.long()][:, None].to(compute_dtype)
+        x, cache = scan_layers_with_cache(
+            lambda x, lp, st: rwk.block_decode(lp, x, st, n_heads=H,
+                                               head_dim=hd,
+                                               eps=cfg.norm_eps),
+            x, params["layers"], cache)
+        h = rmsnorm(params["final_norm"]["scale"], x[:, 0], cfg.norm_eps)
+        return mm(h, params["lm_head"]), cache
+
     return ModelBundle(cfg=cfg, device=device, init=init, init_train=init,
-                       forward=forward, loss_fn=loss_fn,
-                       prefill=_not_ported("the RWKV prefill"),
-                       decode_step=_not_ported("the RWKV decode step"))
+                       forward=forward, loss_fn=loss_fn, prefill=prefill,
+                       decode_step=decode_step, init_cache=init_cache)

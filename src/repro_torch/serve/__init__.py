@@ -1,9 +1,10 @@
-"""Paged serving: KV-page accounting, the block allocator and the
-continuous-batching engine."""
+"""Serving: KV-page accounting, the block allocator, the wave-batched
+dense engine and the continuous-batching paged engine."""
 from repro_torch.serve.engine import (  # noqa: F401
     GenerationConfig,
     PagedServeEngine,
     RequestResult,
+    ServeEngine,
 )
 from repro_torch.serve.kvcache import (  # noqa: F401
     BlockAllocator,

@@ -1,5 +1,12 @@
-"""Paged continuous-batching serving engine (PyTorch port of the paged
-half of ``repro/serve/engine.py``).
+"""Serving engines (PyTorch port of ``repro/serve/engine.py``): the
+wave-batched dense baseline and paged continuous batching.
+
+``ServeEngine`` is the dense baseline: one prefill of a wave of requests,
+then ``max_new_tokens - 1`` decode steps over the wave's dense cache.
+Every request in a wave decodes to ``max_new_tokens`` even if it hit EOS
+at step 2; the wasted steps are what ``RequestResult.decode_steps`` makes
+visible and what ``PagedServeEngine`` removes.  The reference runs its
+decode steps as one jitted ``lax.scan``; here they are an eager loop.
 
 ``PagedServeEngine`` mirrors the reference step for step:
 
@@ -12,8 +19,18 @@ half of ``repro/serve/engine.py``).
 The reference jits one decode step and donates the pool; here each step
 runs eagerly and writes the per-layer pool in place.  Slot state is
 uploaded to the device only when the host's copy changed, as in the
-reference.  The dense wave-batched ``ServeEngine`` and the ``metrics=``
-telemetry hook are not ported yet (ROADMAP Queue 1: serving, telemetry).
+reference.
+
+Both engines take an optional ``metrics=`` (``telemetry/metrics.py``'s
+``MetricsLogger``): one ``serve_summary`` row per ``serve_queue`` call,
+and from the paged engine one ``serve_step`` row per decode step, with
+the reference's keys and values (wall times aside).
+
+MoE archs: expert capacity applies per routing group, so a MoE that
+drops tokens routes chunked prefill groups differently from a
+full-prompt prefill.  With a dropless capacity factor
+(``cf >= n_experts / top_k``) chunking changes nothing and paged and
+dense greedy outputs agree (models/moe.py).
 """
 from __future__ import annotations
 
@@ -43,8 +60,36 @@ class RequestResult:
     tokens: np.ndarray              # generated tokens (trimmed at EOS)
     steps: int                      # == len(tokens) (post-trim)
     # decode iterations actually spent on this request (prefill's free
-    # first token excluded)
+    # first token excluded).  For the dense wave engine this is always
+    # max_new_tokens - 1: EOS does not stop the wave
     decode_steps: int = 0
+
+
+def _bucket_len(n: int, floor: int = 8) -> int:
+    """Next power of two >= n (>= floor): the wave's prompt pad target,
+    so mixed prompt lengths give a log-bounded set of prefill shapes."""
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+def _greedy_or_draw(logits: torch.Tensor, temperature: float,
+                    rng: Optional[torch.Generator]) -> torch.Tensor:
+    """Greedy argmax (first index on ties, like jnp.argmax) or a
+    temperature draw from ``rng``.  The draws are torch's, not JAX's:
+    only greedy outputs match the reference's."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=rng)[..., 0].to(
+        torch.int32)
+
+
+def _seeded(gen: "GenerationConfig", device) -> Optional[torch.Generator]:
+    if gen.temperature <= 0.0:
+        return None
+    return torch.Generator(device=device).manual_seed(gen.seed)
 
 
 def _queue_summary(engine: str, results: List[RequestResult],
@@ -67,6 +112,110 @@ def _queue_summary(engine: str, results: List[RequestResult],
         "pool_pages": pool_pages,
         "mean_occupancy": round(mean_occupancy, 3),
     }
+
+
+class ServeEngine:
+    """Wave-batched serving over a dense cache.
+
+    ``prefill_traces`` and ``decode_traces`` count calls: the prefills run
+    and the decode loops entered (the reference counts its jit traces,
+    which the eager port does not have; the paged engine's
+    ``decode_calls`` counts the same way).
+    """
+
+    def __init__(self, bundle: ModelBundle, params, *, max_len: int = 1024,
+                 gen: GenerationConfig = GenerationConfig(),
+                 metrics: Optional[Any] = None):
+        self.bundle = bundle
+        self.params = params
+        self.device = bundle.device
+        self.max_len = max_len
+        self.gen = gen
+        self.metrics = metrics
+        self.last_summary: Optional[Dict[str, Any]] = None
+        self.prefill_traces = 0
+        self.decode_traces = 0
+        self.finish_times: Dict[int, float] = {}
+
+    def steady_state_summary(self) -> Optional[Dict[str, Any]]:
+        """Summary of the last ``serve_queue`` call (None before one)."""
+        return self.last_summary
+
+    def _prefill(self, params, batch):
+        self.prefill_traces += 1
+        return self.bundle.prefill(params, dict(batch, max_len=self.max_len))
+
+    def _decode_loop(self, params, tok, cache, rng, steps: int):
+        """``steps`` decode steps from ``tok`` -> tokens [B, steps]."""
+        self.decode_traces += 1
+        toks = []
+        for _ in range(steps):
+            logits, cache = self.bundle.decode_step(params, tok, cache)
+            tok = _greedy_or_draw(logits, self.gen.temperature, rng)
+            toks.append(tok)
+        return torch.stack(toks, 1), cache
+
+    @torch.no_grad()
+    def generate(self, prompts, extras: Optional[Dict[str, Any]] = None
+                 ) -> np.ndarray:
+        """prompts [B, S] int -> generated tokens [B, max_new_tokens]."""
+        prompts = torch.as_tensor(prompts, device=self.device)
+        batch = {"tokens": prompts}
+        if extras:
+            batch.update(extras)
+        logits, cache = self._prefill(self.params, batch)
+        rng = _seeded(self.gen, self.device)
+        first = _greedy_or_draw(logits, self.gen.temperature, rng)
+        out = [first[:, None]]
+        if self.gen.max_new_tokens > 1:
+            toks, _ = self._decode_loop(self.params, first, cache, rng,
+                                        self.gen.max_new_tokens - 1)
+            out.append(toks)
+        return torch.cat(out, 1).cpu().numpy()
+
+    def serve_queue(self, requests: Sequence[np.ndarray], *,
+                    slots: int = 4,
+                    max_new: Optional[Sequence[int]] = None
+                    ) -> List[RequestResult]:
+        """Requests in waves of ``slots``; each wave left-pads (token 0, no
+        mask) to the power-of-two bucket of its longest prompt.  A
+        request's ``max_new`` budget trims its tokens, but the wave still
+        decodes ``gen.max_new_tokens``: the wasted steps ``decode_steps``
+        shows.  Per-request completion times (seconds since the call
+        started) land in ``self.finish_times``."""
+        results: List[RequestResult] = []
+        queue = list(enumerate(requests))
+        eos = self.gen.eos_id
+        self.finish_times = {}
+        t0 = time.time()
+        while queue:
+            wave, queue = queue[:slots], queue[slots:]
+            longest = max(len(p) for _, p in wave)
+            if longest > self.max_len:
+                raise ValueError(f"prompt length {longest} exceeds "
+                                 f"max_len {self.max_len}")
+            L = min(_bucket_len(longest), self.max_len)
+            prompts = np.zeros((len(wave), L), np.int32)
+            for r, (_, p) in enumerate(wave):
+                prompts[r, L - len(p):] = p
+            toks = self.generate(prompts)
+            done = time.time() - t0
+            for r, (rid, _) in enumerate(wave):
+                t = toks[r]
+                if max_new is not None:
+                    t = t[:max_new[rid]]
+                if eos >= 0 and (t == eos).any():
+                    t = t[:int(np.argmax(t == eos)) + 1]
+                results.append(RequestResult(
+                    rid, prompts[r], t, len(t),
+                    decode_steps=self.gen.max_new_tokens - 1))
+                self.finish_times[rid] = done
+        self.last_summary = _queue_summary("dense", results,
+                                           time.time() - t0)
+        if self.metrics is not None:
+            self.metrics.log_row("serve_summary", **self.last_summary)
+            self.metrics.flush()
+        return results
 
 
 @dataclasses.dataclass
@@ -100,7 +249,8 @@ class PagedServeEngine:
                  max_len: int = 1024, prefill_chunk: int = 32,
                  budget_bytes: Optional[int] = None,
                  cache_dtype=torch.bfloat16,
-                 gen: GenerationConfig = GenerationConfig()):
+                 gen: GenerationConfig = GenerationConfig(),
+                 metrics: Optional[Any] = None):
         if bundle.decode_step_paged is None:
             raise ValueError(
                 f"arch '{bundle.cfg.name}' (family {bundle.cfg.family}) has "
@@ -134,6 +284,9 @@ class PagedServeEngine:
 
         self.finish_times: Dict[int, float] = {}
         self._t0 = 0.0
+        # serve_step rows per decode step (slot occupancy, pool pressure)
+        # and one serve_summary row per serve_queue call
+        self.metrics = metrics
         self.last_summary: Optional[Dict[str, Any]] = None
         # decode steps run by the last serve_queue call
         self.decode_calls = 0
@@ -151,22 +304,12 @@ class PagedServeEngine:
     # ------------------------------------------------------------ #
     # device steps
 
-    def _sample(self, logits: torch.Tensor,
-                rng: Optional[torch.Generator]) -> torch.Tensor:
-        """Greedy argmax (first index on ties, like jnp.argmax) or a
-        temperature draw from the engine's generator."""
-        if self.gen.temperature <= 0.0:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        probs = torch.softmax(logits.float() / self.gen.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=rng)[..., 0].to(
-            torch.int32)
-
     def _decode(self, params, toks, pages, tables, lengths, active, rng):
         """One decode step.  What the next step needs (tokens, advanced
         lengths) stays on the device; the host reads back the tokens."""
         logits, pages = self.bundle.decode_step_paged(
             params, toks, pages, tables, lengths, active)
-        nxt = self._sample(logits, rng)
+        nxt = _greedy_or_draw(logits, self.gen.temperature, rng)
         return (torch.where(active, nxt, torch.zeros_like(nxt)), pages,
                 lengths + active.to(torch.int32))
 
@@ -265,10 +408,7 @@ class PagedServeEngine:
         """
         queue = list(enumerate(requests))
         results: Dict[int, RequestResult] = {}
-        rng = None
-        if self.gen.temperature > 0.0:
-            rng = torch.Generator(device=self.device)
-            rng.manual_seed(self.gen.seed)
+        rng = _seeded(self.gen, self.device)
         self.finish_times = {}
         self._t0 = time.time()
         self.refill_events = 0
@@ -308,7 +448,8 @@ class PagedServeEngine:
                 s.base += self.chunk
                 if s.base >= s.plen:    # prompt fully cached -> sample
                     last = logits[0, s.plen - 1 - (s.base - self.chunk)]
-                    tok = int(self._sample(last[None], rng)[0])
+                    tok = int(_greedy_or_draw(last[None], self.gen.temperature,
+                                              rng)[0])
                     s.state = "decode"
                     self._lengths[i] = s.plen
                     self._dirty = True
@@ -340,6 +481,13 @@ class PagedServeEngine:
                         self._slots[i].decode_steps += 1
                         self._push_token(i, int(nxt[i]), results)
                 occ_sum += n_active / self.slots
+                if self.metrics is not None:
+                    self.metrics.log_row(
+                        "serve_step", step=decode_step_idx,
+                        active_slots=n_active,
+                        occupancy=round(n_active / self.slots, 3),
+                        new_tokens=n_active,
+                        pages_in_use=self.alloc.in_use)
                 decode_step_idx += 1
 
         self.decode_calls = decode_step_idx
@@ -350,4 +498,7 @@ class PagedServeEngine:
             peak_pages_in_use=self.alloc.peak_in_use,
             pool_pages=self.alloc.n_pages - 1,
             mean_occupancy=occ_sum / max(1, decode_step_idx))
+        if self.metrics is not None:
+            self.metrics.log_row("serve_summary", **self.last_summary)
+            self.metrics.flush()
         return out

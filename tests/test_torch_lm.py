@@ -323,11 +323,27 @@ def test_loader_shapes_streams_and_refusals():
 
 
 def test_rwkv_serving_entry_points_raise():
+    """The RWKV serving entry points, once refused, now run on the CPU:
+    a prefill from the training tree, then decode steps whose states
+    continue the prefill's (teacher-forced, they equal a prefill of the
+    longer prompt)."""
     _, cfg = _cfgs("rwkv6-1.6b")
     bundle = build(cfg, device="cpu")
-    for fn in (bundle.prefill, bundle.decode_step):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn(None, None)
+    params = bundle.init()
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 12)).astype(np.int32))
+    logits, cache = bundle.prefill(params, {"tokens": toks[:, :9]})
+    assert logits.shape == (2, cfg.padded_vocab) and len(cache) == \
+        cfg.n_layers
+    for t in range(9, 12):
+        logits, cache = bundle.decode_step(params, toks[:, t], cache)
+    want, full = bundle.prefill(params, {"tokens": toks})
+    np.testing.assert_allclose(logits.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    for c, f in zip(cache, full):
+        for name in ("tm_shift", "wkv", "cm_shift"):
+            np.testing.assert_allclose(c[name].numpy(), f[name].numpy(),
+                                       rtol=1e-4, atol=1e-5)
 
 
 def test_train_cli_runs_one_round_on_cpu(capsys):

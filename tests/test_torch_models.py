@@ -27,6 +27,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
+from repro_torch.serve import GenerationConfig  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 PAGE, CHUNK, NEW = 8, 16, 6
@@ -200,18 +201,27 @@ def _paged_run(pair):
 
 def test_unported_families_raise():
     """The hybrid family does not build; the MoE, MLA and VLM decoders
-    build and train, and their serving entry points raise (item 6)."""
-    from repro_torch.serve.engine import PagedServeEngine
+    build, train and now serve through both engines (their parity with
+    the reference is ``tests/test_torch_serve_families.py``'s)."""
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(get_config("hymba-1.5b").reduced(), device="cpu")
+    reqs = [np.arange(1, 10, dtype=np.int32), np.arange(3, 8,
+                                                        dtype=np.int32)]
     for arch in ("deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
                  "qwen2-vl-2b"):
-        bundle = build(get_config(arch).reduced(), device="cpu")
+        cfg = get_config(arch).reduced()
+        bundle = build(cfg, device="cpu")
         assert bundle.init_train(torch.Generator().manual_seed(0))
-        for fn in (bundle.init, bundle.init_paged_cache,
-                   bundle.prefill_paged_chunk, bundle.decode_step_paged,
-                   bundle.prefill, bundle.decode_step):
-            with pytest.raises(NotImplementedError, match="item 6"):
-                fn(None, None)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            PagedServeEngine(bundle, bundle.init())
+        params = bundle.init()
+        if cfg.first_k_dense:
+            assert len(params.layers_dense) == cfg.first_k_dense
+        gen = GenerationConfig(max_new_tokens=4)
+        dense = ServeEngine(bundle, params, max_len=32, gen=gen)
+        paged = PagedServeEngine(bundle, params, max_len=32, page_size=8,
+                                 prefill_chunk=8, gen=gen)
+        for eng in (dense, paged):
+            res = eng.serve_queue(reqs)
+            assert [r.steps for r in res] == [4, 4]
+            assert all(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
+                       for r in res)

@@ -6,7 +6,8 @@ greedy tokens, request order, per-request decode steps, refill events and
 the pool's high-water mark must be identical, and the pool must come back
 whole.  The ``BlockAllocator`` invariants of ``tests/test_paged.py`` are
 held against the port's copy, and the port's serve launcher is run once
-on the CPU.
+on the CPU, paged and dense (the wave engine's own tests are in
+``tests/test_torch_serve_dense.py``).
 """
 import dataclasses
 import os
@@ -203,7 +204,19 @@ def test_serve_launcher_cpu_smoke():
     assert "steady-state: engine=paged" in proc.stdout
 
 
-def test_serve_launcher_dense_path_not_ported():
+def test_serve_launcher_dense_path_not_ported(capsys, tmp_path):
+    """The dense path, once refused, now serves: without ``--paged`` the
+    launcher runs the wave engine and ``--metrics-out`` writes its
+    summary row."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "starcoder2-15b", "--device", "cpu"])
+    from repro_torch.telemetry import validate_jsonl
+    out = tmp_path / "rows.jsonl"
+    serve.main(["--arch", "starcoder2-15b", "--device", "cpu",
+                "--requests", "3", "--max-new", "4",
+                "--metrics-out", str(out)])
+    text = capsys.readouterr().out
+    assert "3 requests, 12 tokens / 9 decode steps" in text
+    assert "steady-state: engine=dense" in text
+    rows = validate_jsonl(str(out))
+    assert [r["subsystem"] for r in rows] == ["serve_summary"]
+    assert rows[0]["engine"] == "dense" and rows[0]["tokens"] == 12
