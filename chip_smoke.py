@@ -218,6 +218,28 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               against paged at a dropless capacity factor (fp32 compute
               and caches): the first decode step's logits within
               MOE_DENSE_TOL (control: one page short), greedy agreement
+  19. ranks   the multi-GPU hierarchy on 4 processes sharing the card, a
+              gloo world on CUDA tensors (the phase probes first which
+              collectives gloo takes on the card, and fails if it refuses
+              one):
+              mesh DIST_MESH (pod, group, local, fsdp, model) over the
+              (1, 2, 2) grid, so two clusters on two rank pairs, the local
+              level inside each rank and fsdp 2; ResNet-18 at width 64, 32
+              examples per learner per step; plans DIST_PLANS (bucketed
+              top-k, then fused qint8) on the shard-aware buckets (each
+              rank's kernels on its own shard's runs, means by
+              reduce-scatter + all-gather, the fsdp regather).  Per rank:
+              the round's kernel launches, collective counts, kernel ==
+              plain and an all-true mask == dense bit for bit; the
+              gathered state against the one-process round on the card
+              (the same shard-aware layout) within the CPU tests' limits,
+              supports equal; one round's wall and, in another, its
+              collective seconds by kind; each process's peak memory
+  20. torchrun launch.train under torchrun --nproc_per_node 1 with the
+              NCCL backend (reduced rwkv6-1.6b): the process group, the
+              mesh and the per-round all-reduce of the metrics run on
+              NCCL; NCCL's multi-rank collectives need a machine with
+              several cards
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -304,6 +326,21 @@ RWKV_QR_FIRE = ((4, 65536, 2), (4, 2048, 2)) + ((4, 4, 2),) * 22
 # 1.009e-1 on the params, 10x the limit, which it must fail
 PSGD_LOSS_TOL = 1e-2
 PSGD_PARAM_TOL = 1e-2
+# phase 9B, beside the trajectory limit: the kernel's Q on every panel the
+# trainer hands it, held to a QR of known accuracy on the same panel (fp64
+# Householder, column signs as Gram-Schmidt's).  The plain CGS2
+# (kernels/ref.py, held to the reference on the CPU) runs the kernel's
+# algorithm in fp32 in another summation order, so the two share the
+# first-order error u * cond(panel) * O(1) and differ by rounding of the
+# same size: max|Q_kernel - Q_fp64| <= QR_FP64_FACTOR * max|Q_plain -
+# Q_fp64| + QR_FP64_FLOOR, per panel stack, the floor (4 u) keeping a panel
+# where the plain Q happens to land on the fp64 one from failing a sound
+# kernel.  Unlike the trajectory limit it does not depend on the state the
+# earlier rounds trained.  The control: a QR that normalizes each column
+# without projecting out the earlier ones, whose columns are not
+# orthogonal (an O(|cos| of the panel's columns) error), must fail it.
+QR_FP64_FACTOR = 2.0
+QR_FP64_FLOOR = 2.0 ** -22
 CODEC_PLANS = ("local@2:qint8/global@8:topk:0.05",
                "local@2/global@8:powersgd:2:bucketed",
                "local@2/global@8:powersgd:2")
@@ -1736,9 +1773,10 @@ def read_counts(counters):
     return out
 
 
-def train_rounds(torch, hier, counters, require_fall=True):
+def train_rounds(torch, hier, counters, require_fall=True, seed=0):
     """Simulator.run(TRAIN_ROUNDS) at P = 16 as (1, 4, 4), sgd(0.1), 32
-    examples per learner per step, with every launch count in
+    examples per learner per step (init and data from ``seed``), with
+    every launch count in
     ``counters`` set to 0 just before and read just after.  Fails unless
     the losses are finite and (with ``require_fall``) the eval loss
     falls."""
@@ -1749,7 +1787,7 @@ def train_rounds(torch, hier, counters, require_fall=True):
     loss_fn, init_fn, sample, eval_batch = resnet_task(torch)
     sim = Simulator(loss_fn, init_fn, sample, topo=HierTopology(1, 4, 4),
                     hier=hier, optimizer=sgd(0.1), per_learner_batch=32,
-                    eval_batch=eval_batch, seed=0, device="cuda")
+                    eval_batch=eval_batch, seed=seed, device="cuda")
     walls = []
     round_fn = sim.round_fn
 
@@ -2104,7 +2142,7 @@ def psgd_witnesses(torch, loss_fn, hier, plan, np_state, batches):
     from repro_torch.kernels.batched_qr import batched_qr as kernel_qr
 
     panels = {"sigma2_over_sigma1": [], "kernel_vs_fp64": [],
-              "plain_vs_fp64": []}
+              "plain_vs_fp64": [], "control_vs_fp64": []}
 
     def recording(p):
         q = kernel_qr(p)
@@ -2112,9 +2150,10 @@ def psgd_witnesses(torch, loss_fn, hier, plan, np_state, batches):
         q64 = qr_fp64(torch, p)
         panels["sigma2_over_sigma1"].append(
             (sv[..., 1] / sv[..., 0]).tolist())
-        panels["kernel_vs_fp64"].append((q.double() - q64).abs().max().item())
-        panels["plain_vs_fp64"].append(
-            (kref.batched_qr_plain(p).double() - q64).abs().max().item())
+        for key, qq in (("kernel_vs_fp64", q),
+                        ("plain_vs_fp64", kref.batched_qr_plain(p)),
+                        ("control_vs_fp64", no_projection(torch, p))):
+            panels[key].append((qq.double() - q64).abs().max().item())
         return q
 
     runs = {}
@@ -2127,10 +2166,20 @@ def psgd_witnesses(torch, loss_fn, hier, plan, np_state, batches):
             runs[label] = rounds_from(torch, loss_fn, hier, plan, np_state,
                                       batches)
     ratios = [v for fire in panels["sigma2_over_sigma1"] for v in fire]
-    return runs, {"panels": len(ratios),
+
+    def beyond(key):
+        """Panel stacks where ``key``'s Q is outside the fp64 limit."""
+        return sum(d > QR_FP64_FACTOR * pl + QR_FP64_FLOOR for d, pl in
+                   zip(panels[key], panels["plain_vs_fp64"]))
+
+    return runs, {"panels": len(ratios), "stacks": len(panels[
+                      "kernel_vs_fp64"]),
                   "sigma2_over_sigma1": (min(ratios), max(ratios)),
                   "kernel_vs_fp64": max(panels["kernel_vs_fp64"]),
-                  "plain_vs_fp64": max(panels["plain_vs_fp64"])}
+                  "plain_vs_fp64": max(panels["plain_vs_fp64"]),
+                  "control_vs_fp64": max(panels["control_vs_fp64"]),
+                  "kernel_beyond": beyond("kernel_vs_fp64"),
+                  "control_beyond": beyond("control_vs_fp64")}
 
 
 def no_projection(torch, p):
@@ -2278,6 +2327,22 @@ def phase_codec_train(torch):
                   f"projection {fmt_read(read['no_projection'])} (must "
                   f"fail); kernel against fp64 QR "
                   f"{fmt_read(read['kernel_vs_fp64'])}")
+            print(f"phase 9B QR against fp64 on the trainer's "
+                  f"{panels['stacks']} panel stacks (held: max|Q - Q_fp64| "
+                  f"<= {QR_FP64_FACTOR} x plain's + {QR_FP64_FLOOR:.3e} per "
+                  f"stack): kernel {panels['kernel_vs_fp64']:.3e}, outside "
+                  f"on {panels['kernel_beyond']} stacks; control without "
+                  f"projection {panels['control_vs_fp64']:.3e}, outside on "
+                  f"{panels['control_beyond']} (must be outside)")
+            if panels["kernel_beyond"]:
+                fail(f"plan B: the kernel's Q is further from an fp64 QR "
+                     f"than {QR_FP64_FACTOR} x the plain CGS2's + "
+                     f"{QR_FP64_FLOOR:.3e} on {panels['kernel_beyond']} of "
+                     f"{panels['stacks']} panel stacks")
+            if not panels["control_beyond"]:
+                fail("plan B: the control QR without projection is within "
+                     "the fp64 limit on every panel stack: it would not "
+                     "fail a wrong QR")
             if not within_psgd_limits(read["kernel"]):
                 fail(f"plan B kernel vs plain QR after 2 rounds: "
                      f"{read['kernel']} (limits: losses {PSGD_LOSS_TOL}, "
@@ -3784,7 +3849,7 @@ def missed_fire_check(torch, state, plan, active):
     from repro_torch.core.hier_avg import _make_reduce
     from repro_torch.tree import leaves
 
-    reduce = _make_reduce(False)
+    reduce = _make_reduce(None, None, False)
     checked = 0
     for i, lvl in enumerate(plan.levels):
         m = torch.as_tensor(active[i]).to("cuda")
@@ -4544,6 +4609,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     timed("18", phase_mla_moe_serve, torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = timed("19", phase_ranks, torch)
+    timed("20", phase_torchrun, torch)
     print(f"phase seconds: {json.dumps(seconds)}")
     # phase 16's bf16 launches and times at qwen2-vl's shape and the
     # serving phases' (4c, 17) at their prefill shapes beside the attention
@@ -4572,9 +4641,11 @@ def main() -> None:
 
     def entry(name, source, replaces, launches, numbers):
         # phase 14's launches beside each kernel its path runs, and
-        # phases 4c and 15-17's
+        # phases 4c, 15-17's and 19's
         extra = ({"elastic_launches": elastic[name]} if name in elastic
                  else {})
+        if name in dist:
+            extra["ranks_launches"] = dist[name]
         extra.update(later.get(name, {}))
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -4614,6 +4685,333 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+# --------------------------------------------------------------------- #
+# phases 19-20: the multi-GPU hierarchy on one card
+
+HIER_AXES = ("pod", "group", "local", "fsdp", "model")
+DIST_MESH = (1, 2, 1, 2, 1)
+DIST_TOPO = (1, 2, 2)
+DIST_PLANS = ("local@2/global@4:topk:0.01", "local@2/global@4:qint8")
+DIST_BATCH = 32
+# the gathered state after one round against the same round in one
+# process on the card: tests/test_torch_hier.py's round limits per element
+# (params, EF ref), the EF residual (what top-k did not send) bit for bit.
+# A rank runs its 2 learners' convolutions as cuDNN grouped convolutions
+# of 2 groups, and one process that vmaps all 4 learners runs groups of 4,
+# which may round otherwise; so the one process runs each rank's 2
+# learners as a group of 2, as the rank does, then the global fire over
+# the whole grid: the two then differ only in the global mean's summation
+# order (in-rank tree and the gloo sum, against one tree over the 4
+# learners).  The phase prints, as the witness of that choice, the same
+# comparison between the vmapped round of 4 and the grouped one, in one
+# process and with no collective, and the gathered round against the
+# vmapped one
+DIST_RTOL, DIST_ATOL = 1e-5, 1e-6
+
+
+def dist_rank(rank, world, out_dir):
+    """Phase 19 on one rank (a spawned process): writes
+    ``out_dir/rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import gather_blocks
+    from repro_torch.configs.base import HierAvgParams
+    from repro_torch.core.hier_avg import (init_state, make_hier_round,
+                                           state_rows)
+    from repro_torch.core.plan import ReductionPlan, resolve_plan
+    from repro_torch.core.topology import HierTopology
+    from repro_torch.data.loader import HierDataLoader
+    from repro_torch.kernels.qint8_pack import qint8_pack as qp
+    from repro_torch.kernels.qint8_pack import qint8_unpack as qu
+    from repro_torch.kernels.topk_compress import topk_compress as tk
+    from repro_torch.optim import sgd
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import (RankMesh, make_constraint_fn,
+                                               shard_plan)
+    from repro_torch.tree import leaves
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    refused = list(collectives.probe_gloo_cuda(dev))
+    mesh = RankMesh(DIST_MESH, HIER_AXES, rank=rank)
+    topo = HierTopology(*DIST_TOPO)
+    block = mesh.block_topology(topo)
+    sp = shard_plan(mesh)
+    cf = make_constraint_fn(mesh)
+    loss_fn, init_fn, sample, _ = resnet_task(torch)
+    counters = {"topk_compress": tk, "qint8_pack": qp, "qint8_unpack": qu}
+    opt = sgd(0.1)
+    rec = {"refused": refused, "plans": {}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b))
+                   if isinstance(x, torch.Tensor))
+
+    for spec in DIST_PLANS:
+        hier = HierAvgParams(plan=spec)
+        plan = resolve_plan(hier, None, None, shards=sp)
+        state0 = init_state(block, init_fn, opt,
+                            torch.Generator(device="cuda").manual_seed(0),
+                            plan=plan, shards=sp, device="cuda")
+        loader = HierDataLoader(sample, topo=topo, hier=hier,
+                                per_learner_batch=DIST_BATCH, seed=5,
+                                mesh=mesh, device="cuda")
+        b0 = loader.next_round()
+        rnd = make_hier_round(loss_fn, opt, hier, mesh=mesh,
+                              constraint_fn=cf, shards=sp)
+        # the main path: one round, counts from 0, every rank starting
+        # together
+        torch.cuda.synchronize()
+        collectives.barrier()
+        zero_counts(counters)
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        state1, m = rnd(state0, b0)
+        torch.cuda.synchronize()
+        r = {"first_round_ms": (time.perf_counter() - t0) * 1e3,
+             "launches": read_counts(counters),
+             "collectives": collectives.counts(),
+             "loss": float(collectives.world_mean(m["loss"].reshape(1)))}
+        # kernel against plain, and an all-true mask against dense, on the
+        # rank's own block, bit for bit
+        plain = make_hier_round(loss_fn, opt, hier, mesh=mesh,
+                                constraint_fn=cf, shards=sp,
+                                plan=plain_plan(ReductionPlan.parse(spec)))
+        r["kernel_eq_plain"] = same(plain(state0, b0)[0], state1)
+        elastic = make_hier_round(loss_fn, opt, hier, mesh=mesh,
+                                  constraint_fn=cf, shards=sp, elastic=True)
+        r["mask_eq_dense"] = same(elastic(
+            state0, b0, np.ones((len(plan.levels),) + DIST_TOPO, bool))[0],
+            state1)
+        whole = gather_blocks(state1, mesh, topo, state_rows(state1, plan))
+        if rank == 0:
+            r["vs_one_process"] = one_process_round(
+                torch, hier, whole, loss_fn, init_fn, sample, r["loss"])
+        del whole
+        # one round's wall, then one with each collective timed, every
+        # rank starting together (rank 0 has just run the one-process
+        # rounds alone)
+        st = state1
+        for timed_round in (False, True):
+            b = loader.next_round()
+            torch.cuda.synchronize()
+            collectives.barrier()
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+            with (collectives.timed() if timed_round
+                  else contextlib.nullcontext()):
+                st, _ = rnd(st, b)
+            torch.cuda.synchronize()
+            key = "timed_round_ms" if timed_round else "round_ms"
+            r[key] = (time.perf_counter() - t0) * 1e3
+        r["collective_s"] = collectives.seconds()
+        rec["plans"][spec] = r
+        del st, state0, state1
+        torch.cuda.empty_cache()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    collectives.barrier()
+
+
+def one_process_round(torch, hier, whole, loss_fn, init_fn, sample, loss):
+    """The same round in one process on the card, the whole (1, 2, 2) grid
+    on the same shard-aware layout (an unbound mesh): each rank's learners
+    take the round's steps and local fires as a group of their own
+    (``local@2`` twice), then the global level fires once over the whole
+    grid, as ``make_hier_round`` fires it.  Returns, for the gathered
+    round against that one (the check), the elements outside the limits,
+    the EF residual's elements that differ, and the largest relative
+    difference per leaf; and the same for two comparisons that explain
+    the reference's design: the round that vmaps all 4 learners in one
+    process (no collective) against the grouped one, and the gathered
+    round against the vmapped one."""
+    from repro_torch.comm import reduce_with
+    from repro_torch.configs.base import HierAvgParams
+    from repro_torch.core.hier_avg import init_state, make_hier_round
+    from repro_torch.core.plan import resolve_plan
+    from repro_torch.core.topology import HierTopology, average_over
+    from repro_torch.data.loader import HierDataLoader
+    from repro_torch.optim import sgd
+    from repro_torch.parallel.sharding import RankMesh, shard_plan
+    from repro_torch.tree import leaves, tree_map
+
+    topo = HierTopology(*DIST_TOPO)
+    usp = shard_plan(RankMesh(DIST_MESH, HIER_AXES))
+    opt = sgd(0.1)
+    plan = resolve_plan(hier, None, None, shards=usp)
+    full = init_state(topo, init_fn, opt,
+                      torch.Generator(device="cuda").manual_seed(0),
+                      plan=plan, shards=usp, device="cuda")
+    batch = HierDataLoader(sample, topo=topo, hier=hier,
+                           per_learner_batch=DIST_BATCH, seed=5,
+                           device="cuda").next_round()
+    local = HierAvgParams(plan=plan.levels[0].describe())
+    rnd = make_hier_round(loss_fn, opt, local)
+    steps = hier.steps_per_round
+    blocks, losses = [], []
+    for g in range(DIST_TOPO[1]):
+        st = init_state(HierTopology(1, 1, DIST_TOPO[2]), init_fn, opt,
+                        torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+        flat = tree_map(lambda x: x.reshape(
+            (steps,) + tuple(x.shape[2:]))[:, :, g:g + 1], batch)
+        for t in range(0, steps, local.steps_per_round):
+            st, m = rnd(st, tree_map(
+                lambda x: x[t:t + local.steps_per_round], flat))
+            losses.append(float(m["loss"]))
+        blocks.append(st.params)
+    params = tree_map(lambda *b: torch.cat(b, dim=1), *blocks)
+    glob = plan.levels[-1]
+    cs = full.comm_state[glob.name] if glob.reducer.stateful else ()
+    params, cs = reduce_with(
+        glob.reducer, lambda t, cf=None, sp=None: average_over(
+            t, glob.axes, cf, sp), params, cs)
+    vmapped, vm = make_hier_round(loss_fn, opt, hier, shards=usp)(full,
+                                                                  batch)
+    stateful = glob.reducer.stateful
+
+    def drift(a_params, a_cs, b_params, b_cs):
+        over, worst = 0, 0.0
+        pairs = list(zip(leaves(a_params), leaves(b_params)))
+        if stateful:
+            pairs += list(zip(leaves(a_cs.ref), leaves(b_cs.ref)))
+        for a, b in pairs:
+            d = (a.float() - b.float()).abs()
+            worst = max(worst, d.max().item()
+                        / max(b.float().abs().max().item(), 1e-30))
+            over += int((d > DIST_ATOL + DIST_RTOL * b.float().abs()).sum())
+        err_diff = 0
+        if stateful:
+            err_diff = sum(int((a != b).sum()) for a, b in zip(
+                leaves(a_cs.err), leaves(b_cs.err)))
+        return {"elements_outside": over,
+                "of_elements": sum(a.numel() for a, _ in pairs),
+                "ef_residual_elements_differing": err_diff,
+                "max_rel_per_leaf": worst}
+
+    wcs = whole.comm_state[glob.name] if stateful else None
+    vcs = vmapped.comm_state[glob.name] if stateful else None
+    return {**drift(whole.params, wcs, params, cs),
+            "loss_diff": abs(loss - sum(losses) / len(losses)),
+            "witness_vmapped4_vs_grouped": drift(vmapped.params, vcs,
+                                                 params, cs),
+            "witness_vmapped4_loss_diff": abs(float(vm["loss"])
+                                              - sum(losses) / len(losses)),
+            "gathered_vs_vmapped4": drift(whole.params, wcs,
+                                          vmapped.params, vcs)}
+
+
+def phase_ranks(torch):
+    """Phase 19: a gloo world of 4 processes on the card (see the module
+    docstring); returns each kernel's launches summed over the ranks and
+    plans."""
+    from repro_torch.testing import spawn_world
+    world = math.prod(DIST_MESH)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        spawn_world(dist_rank, world, d, timeout=600)
+        recs = []
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    wall = time.perf_counter() - t0
+    refused = recs[0]["refused"]
+    print(f"phase 19 ranks: {world} processes on {smi_line()}, gloo on CUDA "
+          f"tensors; collectives gloo refuses on the card: "
+          f"{', '.join(refused) or 'none'}; mesh {DIST_MESH} "
+          f"over {DIST_TOPO}, ResNet-18 width 64, {DIST_BATCH} per learner "
+          f"per step; world wall {wall:.1f}s; peak GiB per process "
+          + " ".join(f"{r['peak_gib']:.3f}" for r in recs))
+    if refused:
+        fail(f"phase 19: gloo refuses {refused} on CUDA tensors")
+    out = {}
+    for spec in DIST_PLANS:
+        rs = [r["plans"][spec] for r in recs]
+        one = rs[0]["vs_one_process"]
+        launches = {k: sum(r["launches"][k] for r in rs)
+                    for k in rs[0]["launches"] if not k.endswith("_calls")}
+        secs = {k: [round(r["collective_s"][k] * 1e3, 3) for r in rs]
+                for k in rs[0]["collective_s"]}
+        witness = {k: one.pop(k) for k in ("witness_vmapped4_vs_grouped",
+                                           "witness_vmapped4_loss_diff",
+                                           "gathered_vs_vmapped4")}
+        print(f"phase 19 {spec}: loss {rs[0]['loss']:.6f}; launches per "
+              f"rank {[r['launches'] for r in rs]}; collectives per rank "
+              f"{[r['collectives'] for r in rs]}; round wall ms, the "
+              f"world's (the largest over the ranks, each round started "
+              f"by a barrier) first "
+              f"{max(r['first_round_ms'] for r in rs):.1f}, then "
+              f"{max(r['round_ms'] for r in rs):.1f}, with collectives "
+              f"timed {max(r['timed_round_ms'] for r in rs):.1f}; per rank "
+              f"first {fmt([r['first_round_ms'] for r in rs])}, then "
+              f"{fmt([r['round_ms'] for r in rs])}, timed "
+              f"{fmt([r['timed_round_ms'] for r in rs])}; collective ms by "
+              f"kind (per rank) {secs}; kernel == plain "
+              f"{[r['kernel_eq_plain'] for r in rs]}; all-true mask == "
+              f"dense {[r['mask_eq_dense'] for r in rs]}; gathered vs one "
+              f"process (ranks' grouping): {one}; witness, one process, "
+              f"no collective: {witness}")
+        if not all(r["kernel_eq_plain"] for r in rs):
+            fail(f"phase 19 {spec}: kernel and plain rounds differ on a rank")
+        if not all(r["mask_eq_dense"] for r in rs):
+            fail(f"phase 19 {spec}: an all-true mask differs from dense")
+        if one["elements_outside"] or one["ef_residual_elements_differing"]:
+            fail(f"phase 19 {spec}: the gathered round is outside the "
+                 f"limits of the one-process round: {one}")
+        want = ("topk_compress",) if "topk" in spec else ("qint8_pack",
+                                                          "qint8_unpack")
+        for k in want:
+            if not launches[k]:
+                fail(f"phase 19 {spec}: {k} was not launched on the ranks")
+            out[k] = out.get(k, 0) + launches[k]
+        if any(r["collectives"]["reduce_scatter"] == 0 for r in rs):
+            fail(f"phase 19 {spec}: a rank ran no reduce-scatter")
+    return out
+
+
+def phase_torchrun(torch):
+    """Phase 20: launch.train under torchrun, one process, NCCL."""
+    from repro_torch.testing import _free_port
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port()), "-m",
+           "repro_torch.launch.train", "--arch", "rwkv6-1.6b", "--rounds",
+           "2", "--learners", "4", "--batch", "2", "--seq", "64",
+           "--backend", "nccl", "--plan", "local@2/global@4:topk:0.05"]
+    # S keeps its default (2): torchrun's own parser reads "--s" as an
+    # abbreviation of its options
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    rounds = [ln for ln in lines if ln.startswith("round ")]
+    coll = [ln for ln in lines if ln.startswith("collectives: ")]
+    print(f"phase 20 torchrun --nproc_per_node 1 --backend nccl (reduced "
+          f"rwkv6-1.6b, 2 rounds): exit {proc.returncode} in {wall:.1f}s; "
+          + " | ".join(ln for ln in lines if ln.startswith("Hier-AVG"))
+          + " | " + " | ".join(rounds + coll))
+    if proc.returncode != 0:
+        fail(f"phase 20: launch.train under torchrun failed:\n"
+             f"{proc.stderr[-3000:]}")
+    if not any("backend=nccl" in ln for ln in lines) or len(rounds) != 2:
+        fail(f"phase 20: no NCCL run of 2 rounds in {lines}")
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in rounds]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase 20: losses {losses}")
+    if not coll or json.loads(coll[0][len("collectives: "):])[
+            "all_reduce"] < 2:
+        fail(f"phase 20: the metrics' all-reduce did not run on NCCL: {coll}")
 
 
 if __name__ == "__main__":

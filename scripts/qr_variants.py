@@ -318,12 +318,15 @@ def variants(names, flush, gen):
           f"barriers: {ops}", flush=True)
 
 
-def trajectories(parent_dir):
+def trajectories(parent_dir, states=1):
     """Phase 9's plans B and C: 2 rounds from one converted state with the
     plain QR, and with each QR below in its place, a panel stack at a time
     (cs.qr_replaced), each read against the plain run (cs.psgd_readings);
     on the source kernel's run, each QR's largest distance from an fp64 QR
-    on the trainer's own panels."""
+    on the trainer's own panels.  With ``states`` > 1 the same from the
+    states that 3 rounds train from seeds 0, 1, ..., and each QR's spread
+    of readings over them (how far the trajectory limit's verdict depends
+    on the state)."""
     import dataclasses
 
     from repro_torch.comm import get_reducer
@@ -352,13 +355,17 @@ def trajectories(parent_dir):
             {"parent": pathlib.Path(parent_dir, CSRC).read_text()}, OUT,
             "qr")["parent"])
     qrs["plain"] = kref.batched_qr_plain
+    spread = {}
     qrs["fp64"] = lambda p: cs.qr_fp64(torch, p).to(p.dtype)
     qrs["no_projection"] = lambda p: cs.no_projection(torch, p)
-    for spec in cs.CODEC_PLANS[1:]:
+    for spec, seed in [(s, k) for s in cs.CODEC_PLANS[1:]
+                       for k in range(states)]:
         hier = HierAvgParams(plan=spec)
         sim, res, loss_fn, *_ = cs.train_rounds(
-            torch, hier, {"batched_qr": kqr.batched_qr}, require_fall=False)
-        print(f"{spec}: eval_loss {cs.fmt(res.eval_losses)}", flush=True)
+            torch, hier, {"batched_qr": kqr.batched_qr}, require_fall=False,
+            seed=seed)
+        print(f"{spec} state {seed}: eval_loss {cs.fmt(res.eval_losses)}",
+              flush=True)
         np_state = train_state_to_numpy(res.state)
         bgen = torch.Generator(device="cuda").manual_seed(8)
         batches = [sim._round_batch(bgen) for _ in range(2)]
@@ -390,13 +397,25 @@ def trajectories(parent_dir):
             read = cs.psgd_readings(torch, sk, sp, lk, lp)
             line.append(f"{name}: {cs.fmt_read(read)} "
                         f"({'within' if cs.within_psgd_limits(read) else 'OUTSIDE'})")
+            spread.setdefault((spec, name), []).append(
+                (read["losses"], read["params"]))
             del sk
-        print(f"trajectories {spec} against the plain QR after 2 rounds: "
-              + "; ".join(line) + "; largest max|Q - Q_fp64| on the "
-              "source run's panels: " + " ".join(
+        print(f"trajectories {spec} state {seed} against the plain QR "
+              f"after 2 rounds: " + "; ".join(line) + "; largest max|Q - "
+              "Q_fp64| on the source run's panels: " + " ".join(
                   f"{n}={v:.3e}" for n, v in dist.items()), flush=True)
         del sp, np_state, batches
         torch.cuda.empty_cache()
+    if states > 1:
+        for (spec, name), reads in spread.items():
+            lo = [min(r[i] for r in reads) for i in (0, 1)]
+            hi = [max(r[i] for r in reads) for i in (0, 1)]
+            within = sum(r[0] <= cs.PSGD_LOSS_TOL
+                         and r[1] <= cs.PSGD_PARAM_TOL for r in reads)
+            print(f"spread over {states} states, {spec}, {name}: losses "
+                  f"[{lo[0]:.3e}, {hi[0]:.3e}] params [{lo[1]:.3e}, "
+                  f"{hi[1]:.3e}], within the limits on {within} of "
+                  f"{states}", flush=True)
 
 
 def main() -> None:
@@ -404,6 +423,9 @@ def main() -> None:
     ap.add_argument("--parent")
     ap.add_argument("--no-phase", action="store_true")
     ap.add_argument("--trajectories", action="store_true")
+    ap.add_argument("--states", type=int, default=1,
+                    help="with --trajectories: read them from the states "
+                         "trained from this many seeds, and their spread")
     ap.add_argument("variants", nargs="*")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -421,7 +443,7 @@ def main() -> None:
         cs.phase_qr(torch, lambda *shape: torch.randn(
             shape, generator=gen, device="cuda"), flush)
     if args.trajectories:
-        trajectories(args.parent)
+        trajectories(args.parent, args.states)
     if args.parent:
         compare_parent(args.parent, flush, gen)
         peaks(args.parent)

@@ -17,6 +17,14 @@ reinterprets them as ``uint16`` bits and views those as
 restore_checkpoint(dir, like) validates every array against the manifest
 and against ``like`` (exact path set, shape, dtype; nothing is silently
 cast) and places each leaf on the device of the matching ``like`` leaf.
+
+On a mesh of ranks (``mesh=``, a bound ``RankMesh``, with the whole
+grid's ``topo``) each rank holds a block of the learners.  Saving gathers
+the blocks, and the shard rows of shard-space reducer state (``rows=``,
+from ``core.hier_avg.state_rows``), into the whole grid's tree and rank
+0 writes it, in the reference's format; restoring reads the whole tree
+on every rank and keeps the rank's block (the counterpart of the
+reference's ``shardings=``).
 """
 from __future__ import annotations
 
@@ -96,8 +104,113 @@ def to_tensor(arr: np.ndarray, dtype: Optional[str] = None,
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
+def _grid_leaves(tree: Any, mesh, topo, rows: Any):
+    """(leaves, kinds): each leaf's kind on a rank's block is "rows" (a
+    shard-space codec view ``[p, g, s*F_local, ...]``), "learner" (a
+    stacked leaf ``[p, g, s, ...]``) or "same" (equal on every rank)."""
+    flat, _ = flatten(tree)
+    marks = [False] * len(flat) if rows is None else flatten(rows)[0]
+    if len(marks) != len(flat):
+        raise ValueError("rows= does not match the tree")
+    block = mesh.block_topology(topo).shape
+    kinds = []
+    for x, m in zip(flat, marks):
+        if m:
+            kinds.append("rows")
+        elif isinstance(x, torch.Tensor) and tuple(x.shape[:3]) == block:
+            kinds.append("learner")
+        else:
+            kinds.append("same")
+    return flat, kinds
+
+
+def gather_blocks(tree: Any, mesh, topo, rows: Any = None) -> Any:
+    """The whole grid's tree, on every rank, from each rank's block: one
+    all-gather over the world per stacked leaf (the reference's arrays
+    are global by construction)."""
+    from repro_torch.parallel import collectives
+    flat, kinds = _grid_leaves(tree, mesh, topo, rows)
+    grid = tuple(mesh.devices.shape)
+    fs = mesh.shape.get("fsdp", 1)
+    out = []
+    for x, kind in zip(flat, kinds):
+        if kind == "same":
+            out.append(x)
+            continue
+        g = collectives.all_gather(x.contiguous().unsqueeze(0), None,
+                                   mesh.size).reshape(grid + tuple(x.shape))
+        g = g.reshape((grid[0], grid[1], grid[2], fs, -1) + tuple(x.shape))
+        g = g.select(4, 0)                      # model = 1
+        rest = tuple(range(7, g.dim()))
+        if kind == "learner":
+            g = g.select(3, 0).permute((0, 3, 1, 4, 2, 5) + tuple(
+                r - 1 for r in rest))
+            out.append(g.reshape(topo.shape + tuple(x.shape[3:])))
+        else:                                   # rows: (s, f) row-major
+            g = g.permute((0, 4, 1, 5, 2, 6, 3) + rest)
+            out.append(g.reshape(topo.shape[:2] + (-1,)
+                                 + tuple(x.shape[3:])))
+    return unflatten(flatten(tree)[1], out)
+
+
+def take_blocks(tree: Any, mesh, topo, rows: Any = None,
+                like: Any = None) -> Any:
+    """Inverse of :func:`gather_blocks`: this rank's block of the whole
+    grid's ``tree`` (kinds read from ``like``, the block-shaped tree, when
+    given), each leaf on its ``like`` leaf's device."""
+    flat, treedef = flatten(tree)
+    _, kinds = _grid_leaves(tree if like is None else like, mesh, topo,
+                            rows)
+    devs = [getattr(x, "device", None)
+            for x in (flat if like is None else flatten(like)[0])]
+    fs = mesh.shape.get("fsdp", 1)
+    f_spread = mesh.spread("fsdp")
+    out = []
+    for x, kind, dev in zip(flat, kinds, devs):
+        if kind == "learner":
+            x = mesh.take_block(x)
+        elif kind == "rows":
+            s = x.shape[2] // fs
+            y = mesh.take_block(x.reshape(tuple(x.shape[:2]) + (s, fs)
+                                          + tuple(x.shape[3:])))
+            if f_spread > 1:
+                y = y.narrow(3, mesh.coord("fsdp"), 1)
+            x = y.reshape(tuple(y.shape[:2]) + (-1,) + tuple(y.shape[4:]))
+        if isinstance(x, torch.Tensor):
+            x = x.contiguous().to(dev)
+        out.append(x)
+    return unflatten(treedef, out)
+
+
+def _grid_like(like: Any, mesh, topo, rows: Any) -> Any:
+    """Host tensors with the whole grid's shapes for a block-shaped
+    ``like`` (what :func:`restore_checkpoint` validates against)."""
+    flat, kinds = _grid_leaves(like, mesh, topo, rows)
+    fs = mesh.shape.get("fsdp", 1)
+    out = []
+    for x, kind in zip(flat, kinds):
+        if kind == "same":
+            out.append(x)
+            continue
+        lead = topo.shape if kind == "learner" \
+            else topo.shape[:2] + (topo.local * fs,)
+        out.append(torch.empty(lead + tuple(x.shape[3:]), dtype=x.dtype))
+    return unflatten(flatten(like)[1], out)
+
+
 def save_checkpoint(path: str, tree: Any, *, step: int = 0,
-                    metadata: Optional[Dict] = None) -> None:
+                    metadata: Optional[Dict] = None, mesh: Any = None,
+                    topo: Any = None, rows: Any = None) -> None:
+    """Write ``tree``.  With a bound ``mesh`` (and the whole grid's
+    ``topo``), ``tree`` is this rank's block: every rank takes part in
+    the gather and rank 0 writes; the others return once it has."""
+    if mesh is not None and mesh.bound:
+        from repro_torch.parallel import collectives
+        tree = gather_blocks(tree, mesh, topo, rows)
+        if mesh.rank == 0:
+            save_checkpoint(path, tree, step=step, metadata=metadata)
+        collectives.barrier()
+        return
     os.makedirs(path, exist_ok=True)
     arrays = {}
     entries = []
@@ -155,8 +268,13 @@ def _validate_manifest(path: str, arrays: Dict[str, np.ndarray]) -> None:
                 f"{e['dtype']}{tuple(e['shape'])}")
 
 
-def restore_checkpoint(path: str, like: Any) -> Any:
+def restore_checkpoint(path: str, like: Any, *, mesh: Any = None,
+                       topo: Any = None, rows: Any = None) -> Any:
     """Restore into the structure of ``like``.
+
+    With a bound ``mesh`` (and the whole grid's ``topo``), ``like`` is
+    this rank's block: the whole grid's checkpoint is validated and read,
+    and the rank keeps its block (:func:`take_blocks`).
 
     Validation: the checkpoint's leaf set must equal ``like``'s exactly
     (extra or missing paths raise listing them), each array must match
@@ -167,6 +285,9 @@ def restore_checkpoint(path: str, like: Any) -> Any:
 
     Placement: each tensor goes to the device of its ``like`` leaf; a
     Python int leaf (a TrainState step) comes back as an int."""
+    if mesh is not None and mesh.bound:
+        whole = restore_checkpoint(path, _grid_like(like, mesh, topo, rows))
+        return take_blocks(whole, mesh, topo, rows, like=like)
     arrays = load_checkpoint(path)
     _validate_manifest(path, arrays)
     entries = _manifest_entries(path)

@@ -123,9 +123,11 @@ class Reducer:
                        for leaf in leaves(tree)))
 
     def wire_payload_bytes(self, tree) -> int:
-        """Bytes one device puts on the wire per reduction: equal to
-        :meth:`payload_bytes` on one card (the shard-aware override is
-        ROADMAP Queue 1 item 7)."""
+        """Bytes one *device* puts on the wire per reduction: equal to
+        :meth:`payload_bytes` on the replicated (fsdp=1) path; the
+        shard-aware bucket engine (comm/bucket.py) overrides it to bill
+        the reduce-scatter/all-gather path, where each device moves only
+        its 1/F shard slice of every sharded bucket."""
         return self.payload_bytes(tree)
 
     def n_messages(self, tree) -> int:

@@ -24,6 +24,13 @@ axes (core/topology.py), optionally compressed per level by a comm/
 Reducer.  Rounds run eagerly and return new tensors; nothing is written
 in place, so the caller's state stays valid.
 
+On a mesh of ``torch.distributed`` ranks (repro_torch/parallel) each rank
+runs this trainer on its block of the learners: the state holds the
+block, each level's reduction sums the ranks by collectives over the
+level's process group (core/topology.py), and ``shards=`` (``fsdp > 1``)
+takes the bucketed levels through shard-local runs and reduce-scatter +
+all-gather.  The ranks of one learner compute its step redundantly.
+
 Elastic rounds (``elastic=True``) take a participation mask per level:
 absent learners contribute weight 0 to the level's renormalized mean and
 keep their params and EF state untouched.  ``telemetry=`` adds the
@@ -42,7 +49,8 @@ from repro_torch.configs.base import HierAvgParams
 from repro_torch.core.plan import (PlanLike, ReductionLevel, ReductionPlan,
                                    apply_bucketing, apply_shards,
                                    init_comm_state, resolve_plan)
-from repro_torch.core.topology import (HierTopology, average_over,
+from repro_torch.core.topology import (LEARNER_AXES, HierTopology,
+                                       average_over,
                                        stack_like, where_active)
 from repro_torch.optim import Optimizer
 from repro_torch.tree import leaves, tree_map
@@ -56,11 +64,6 @@ class TrainState(NamedTuple):
                           # name; () when no level is stateful
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                              f"item {item}")
-
-
 def init_state(topo: HierTopology, init_fn, optimizer: Optimizer,
                generator: Optional[torch.Generator],
                reducer: Optional[Reducer] = None,
@@ -71,7 +74,9 @@ def init_state(topo: HierTopology, init_fn, optimizer: Optimizer,
                device="cuda") -> TrainState:
     """All learners start from the same w_1 (paper's initialization):
     ``init_fn(generator)`` once, moved to ``device`` and copied to every
-    learner.
+    learner.  ``topo`` is the grid of learners this process holds: on a
+    mesh of ranks, this rank's block (``RankMesh.block_topology``), with
+    the same generator seed on every rank.
 
     ``plan`` (or legacy ``reducer``) must match what the round/step
     function was built with: stateful reducers carry per-level state in
@@ -84,7 +89,16 @@ def init_state(topo: HierTopology, init_fn, optimizer: Optimizer,
     A ``ReductionPlan`` instance is taken as resolved unless
     ``bucket_bytes`` or ``overlap`` is given: an explicit ``overlap``
     re-chooses the bucket engine.
+
+    ``shards`` (a ``ShardPlan``, fsdp > 1) must be the one the round is
+    built with: the EF state then holds this rank's shard rows.
     """
+    if shards is not None and shards.mesh.bound:
+        for ax, n in zip(LEARNER_AXES, topo.shape):
+            if shards.mesh.spread(ax) > 1 and n != 1:
+                raise ValueError(f"topology {topo.shape} is not a rank's "
+                                 f"block of {shards.mesh}: pass "
+                                 f"mesh.block_topology(topo)")
     params = stack_like(topo, tree_map(lambda x: x.to(device),
                                        init_fn(generator)))
     opt_state = optimizer.init(params)
@@ -200,56 +214,68 @@ def make_sgd_step(loss_fn: Callable, optimizer: Optimizer,
     return step
 
 
-def _make_reduce(sync_opt_state: bool):
+def _round_mesh(mesh, shards):
+    """The bound mesh a round runs on (None in one process); a
+    ``ShardPlan`` on a mesh of ranks must be laid on that same mesh."""
+    mesh = mesh if mesh is not None and mesh.bound else None
+    if shards is not None and shards.mesh.bound and shards.mesh is not mesh:
+        raise ValueError(f"shards= is laid on {shards.mesh} but the round "
+                         f"runs on {mesh}: pass mesh=shards.mesh")
+    return mesh
+
+
+def _make_reduce(mesh, constraint_fn, sync_opt_state: bool):
     """reduce(level, state, active=None) -> state after one compressed
     reduction at that level, touching only that level's comm_state entry.
 
     ``active`` (elastic membership, repro_torch/elastic): a boolean
-    ``[pods, G, S]`` participation mask on the state's device.  The
-    grouped mean renormalizes over the present learners only
-    (core/topology.py ``average_over``), and absent learners keep their
-    own params AND their EF/``comm_state`` untouched across the missed
-    fire (``where_active``).  ``active=None`` is the dense path."""
+    ``[pods, G, S]`` participation mask on the state's device (on a mesh
+    of ranks the whole grid's).  The grouped mean renormalizes over the
+    present learners only (core/topology.py ``average_over``), and absent
+    learners keep their own params AND their EF/``comm_state`` untouched
+    across the missed fire (``where_active``, on this rank's block).
+    ``active=None`` is the dense path.  ``mesh``: the bound mesh of
+    ranks the reductions run on, or None in one process."""
 
     def reduce(level: ReductionLevel, state: TrainState,
                active=None) -> TrainState:
-        avg_fn = lambda tree, cf=None: average_over(  # noqa: E731
-            tree, level.axes, mask=active)
+        avg_fn = lambda tree, cf=None, specs=None: average_over(  # noqa: E731
+            tree, level.axes, cf, specs, active, mesh)
+        mine = active if active is None or mesh is None \
+            else mesh.take_block(active)
         if level.reducer.stateful:
             params, lvl_cs = reduce_with(level.reducer, avg_fn, state.params,
-                                         state.comm_state[level.name])
+                                         state.comm_state[level.name],
+                                         constraint_fn)
             if active is not None:
-                lvl_cs = where_active(active, lvl_cs,
+                lvl_cs = where_active(mine, lvl_cs,
                                       state.comm_state[level.name])
             comm_state = dict(state.comm_state)
             comm_state[level.name] = lvl_cs
         else:
-            params, _ = reduce_with(level.reducer, avg_fn, state.params, ())
+            params, _ = reduce_with(level.reducer, avg_fn, state.params, (),
+                                    constraint_fn)
             comm_state = state.comm_state
         if active is not None:
-            params = where_active(active, params, state.params)
+            params = where_active(mine, params, state.params)
         if sync_opt_state:
-            opt = avg_fn(state.opt_state)
+            opt = avg_fn(state.opt_state, constraint_fn)
             if active is not None:
-                opt = where_active(active, opt, state.opt_state)
+                opt = where_active(mine, opt, state.opt_state)
             state = state._replace(opt_state=opt)
         return state._replace(params=params, comm_state=comm_state)
 
     return reduce
 
 
-def _refuse_unported(constraint_fn, shards):
-    if constraint_fn is not None:
-        _not_ported("constraint_fn (GSPMD sharding hints)", "7")
-    if shards is not None:
-        _not_ported("shards= (fsdp layouts)", "7")
-
-
-def _device_masks(active, n_levels: int, params) -> torch.Tensor:
-    """The ``[n_levels, pods, G, S]`` participation mask as a bool tensor
-    on the params' device (a host mask goes up through pinned memory,
-    without a synchronize)."""
+def _device_masks(active, n_levels: int, params, mesh=None) -> torch.Tensor:
+    """The ``[n_levels, pods, G, S]`` participation mask (the whole grid's
+    on a mesh of ranks) as a bool tensor on the params' device (a host
+    mask goes up through pinned memory, without a synchronize)."""
     lead = tuple(leaves(params)[0].shape[:3])
+    if mesh is not None:
+        lead = tuple(n * mesh.spread(ax) for n, ax in
+                     zip(lead, LEARNER_AXES))
     m = torch.as_tensor(active, dtype=torch.bool)
     if tuple(m.shape) != (n_levels,) + lead:
         raise ValueError(f"active mask must be [n_levels, pods, G, S] = "
@@ -266,6 +292,7 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
                     hier: HierAvgParams, *,
                     sync_opt_state: bool = False,
                     skip_local: bool = False,
+                    mesh: Optional[Any] = None,
                     constraint_fn: Optional[Callable] = None,
                     grad_postprocess: Optional[Callable] = None,
                     microbatch: int = 1,
@@ -307,20 +334,32 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
     and the cross-learner gradient-norm variance.  Pure observers: the
     trajectory is bit for bit that of ``telemetry=None``.
 
-    Not ported yet, and refused: ``constraint_fn`` and ``shards`` (ROADMAP
-    Queue 1 item 7).
+    On a mesh of ranks: ``mesh`` (a bound ``RankMesh``) is the one the
+    levels reduce over, ``constraint_fn`` (parallel/sharding.py
+    ``make_constraint_fn``) checks each reduction's block shapes, and
+    ``shards`` (a ``ShardPlan`` on ``mesh``, fsdp > 1) packs the bucketed
+    levels shard-locally and runs their means as reduce-scatter +
+    all-gather; pass the same ``shards`` to ``init_state``.  ``state``
+    and ``round_batch`` hold this rank's block of the learners, ``active``
+    the whole grid's mask, and the metrics are means over the block.
+    ``telemetry`` is refused there: its statistics are means over a
+    level's groups, which a rank's block does not hold (ROADMAP item 8).
     """
     from repro_torch.telemetry.gradstats import (level_stats,
                                                  make_grad_observer,
                                                  resolve_telemetry)
-    _refuse_unported(constraint_fn, shards)
+    mesh = _round_mesh(mesh, shards)
     tcfg = resolve_telemetry(telemetry)
-    p = resolve_plan(hier, reducer, plan)
+    if tcfg is not None and mesh is not None:
+        raise NotImplementedError(
+            "telemetry= on a mesh of ranks: the statistics need the level "
+            "groups' means across ranks (ROADMAP item 8)")
+    p = resolve_plan(hier, reducer, plan, shards=shards)
     sgd_step = make_sgd_step(loss_fn, optimizer, grad_postprocess,
                              microbatch=microbatch,
                              grad_observer=make_grad_observer(
                                  tcfg, p.levels) if tcfg else None)
-    _reduce = _make_reduce(sync_opt_state)
+    _reduce = _make_reduce(mesh, constraint_fn, sync_opt_state)
     last = len(p.levels) - 1
     n_dims = len(p.batch_dims)
 
@@ -369,7 +408,7 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
         return round_fn
 
     def elastic_round_fn(state: TrainState, round_batch, active):
-        active = _device_masks(active, len(p.levels), state.params)
+        active = _device_masks(active, len(p.levels), state.params, mesh)
         state, metrics = run(state, round_batch, active)
         for i, lvl in enumerate(p.levels):
             metrics[f"active_frac/{lvl.name}"] = active[i].float().mean()
@@ -385,6 +424,7 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
 def make_hier_step(loss_fn: Callable, optimizer: Optimizer,
                    hier: HierAvgParams, *,
                    skip_local: bool = False,
+                   mesh: Optional[Any] = None,
                    constraint_fn: Optional[Callable] = None,
                    reducer: Optional[Any] = None,
                    plan: PlanLike = None,
@@ -406,13 +446,13 @@ def make_hier_step(loss_fn: Callable, optimizer: Optimizer,
     round API also reduces inner levels at outer boundaries, so the two
     trajectories differ by the compression of an already-averaged delta.
 
-    Not ported yet, and refused: ``constraint_fn`` and ``shards`` (ROADMAP
-    Queue 1 item 7).
+    ``mesh``, ``constraint_fn`` and ``shards`` run it on a mesh of
+    ranks, as in ``make_hier_round``.
     """
-    _refuse_unported(constraint_fn, shards)
+    mesh = _round_mesh(mesh, shards)
     sgd_step = make_sgd_step(loss_fn, optimizer)
-    p = resolve_plan(hier, reducer, plan)
-    _reduce = _make_reduce(False)
+    p = resolve_plan(hier, reducer, plan, shards=shards)
+    _reduce = _make_reduce(mesh, constraint_fn, False)
     last = len(p.levels) - 1
 
     def step(state: TrainState, batch, active=None
@@ -421,7 +461,8 @@ def make_hier_step(loss_fn: Callable, optimizer: Optimizer,
             if active is None:
                 raise ValueError("the elastic step needs the "
                                  "[n_levels, pods, G, S] active mask")
-            active = _device_masks(active, len(p.levels), state.params)
+            active = _device_masks(active, len(p.levels), state.params,
+                                   mesh)
         state, metrics = sgd_step(state, batch)
         t = state.step  # steps completed
         for i, level in enumerate(p.levels):
@@ -455,3 +496,26 @@ def shard_round_batch(batch, hier: HierAvgParams, topo: HierTopology):
         return x.reshape(hier.batch_dims + topo.shape + (b,)
                          + tuple(x.shape[1:]))
     return tree_map(rs, batch)
+
+
+def state_rows(state: TrainState, plan: ReductionPlan) -> TrainState:
+    """Which leaves of ``state`` are shard rows (the codec view of a
+    shard-aware level's sharded buckets), as a tree of bools: the
+    ``rows=`` a checkpoint of a rank's block takes
+    (checkpoint/checkpoint.py ``save_checkpoint(mesh=)``).  ``plan`` is
+    the resolved plan the state was built with (``shards=`` included)."""
+    def no(tree):
+        return tree_map(lambda _: False, tree)
+
+    cs = state.comm_state
+    if cs and cs != ():
+        rows = {}
+        for lvl in plan.levels:
+            if lvl.name not in cs:
+                continue
+            r = lvl.reducer
+            rows[lvl.name] = (r.state_rows(cs[lvl.name], state.params)
+                              if getattr(r, "shards", None) is not None
+                              else no(cs[lvl.name]))
+        cs = rows
+    return TrainState(no(state.params), no(state.opt_state), False, cs)

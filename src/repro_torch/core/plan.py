@@ -218,13 +218,13 @@ def apply_bucketing(plan: ReductionPlan, bucket_bytes: int,
     The dense mean and PowerSGD stay per leaf unless marked.  An explicit
     ``:pipelined`` stays pipelined with ``overlap=False`` and a
     ``:serial`` pin stays serial with ``overlap=True``; a wrapper that an
-    earlier resolution chose follows the current ``overlap``.  ``shards``
-    (fsdp layouts) is ROADMAP Queue 1 item 7 and raises.
+    earlier resolution chose follows the current ``overlap``.
+
+    ``shards`` (a ``ShardPlan`` of an ``fsdp > 1`` mesh, or None) is
+    threaded into every bucket engine, so layouts pack per-shard runs and
+    the grouped means run as reduce-scatter + all-gather; wrappers
+    carrying another ShardPlan are rebuilt.
     """
-    if shards is not None:
-        raise NotImplementedError(
-            "sharded bucket layouts are not ported yet: ROADMAP Queue 1 "
-            "item 7")
     levels, changed = [], False
     for lvl in plan.levels:
         r = lvl.reducer
@@ -240,8 +240,10 @@ def apply_bucketing(plan: ReductionPlan, bucket_bytes: int,
             if (cap is None and bucket_bytes and bucket_bytes > 0
                     and bucket_bytes != r.effective_bucket_bytes):
                 cap = bucket_bytes
-            if type(r) is not engine or cap != r.bucket_bytes:
-                new = engine(r.inner, cap)
+            want_shards = shards if shards is not None else r.shards
+            if (type(r) is not engine or cap != r.bucket_bytes
+                    or want_shards is not r.shards):
+                new = engine(r.inner, cap, shards=want_shards)
                 new.overlap_opt_out = r.overlap_opt_out
                 new.pipeline_pin = r.pipeline_pin
         elif (bucket_bytes and bucket_bytes > 0
@@ -249,7 +251,7 @@ def apply_bucketing(plan: ReductionPlan, bucket_bytes: int,
             engine = Pipelined if (overlap and not r.overlap_opt_out) \
                 else Bucketed
             # a ':serial' pin stays visible as new.inner.overlap_opt_out
-            new = engine(r, bucket_bytes)
+            new = engine(r, bucket_bytes, shards=shards)
         if new is not r:
             lvl = replace(lvl, reducer=new)
             changed = True
@@ -258,13 +260,22 @@ def apply_bucketing(plan: ReductionPlan, bucket_bytes: int,
 
 
 def apply_shards(plan: ReductionPlan, shards) -> ReductionPlan:
-    """Only ``shards=None`` (a no-op) is ported; sharded layouts are
-    ROADMAP Queue 1 item 7."""
-    if shards is not None:
-        raise NotImplementedError(
-            "sharded bucket layouts are not ported yet: ROADMAP Queue 1 "
-            "item 7")
-    return plan
+    """Thread a ``ShardPlan`` into an already-resolved plan's bucket
+    engines, keeping each level's engine and cap (for callers holding a
+    ``ReductionPlan`` instance).  ``shards=None`` is a no-op."""
+    if shards is None:
+        return plan
+    levels, changed = [], False
+    for lvl in plan.levels:
+        r = lvl.reducer
+        if isinstance(r, Bucketed) and r.shards is not shards:
+            new = type(r)(r.inner, r.bucket_bytes, shards=shards)
+            new.overlap_opt_out = r.overlap_opt_out
+            new.pipeline_pin = r.pipeline_pin
+            lvl = replace(lvl, reducer=new)
+            changed = True
+        levels.append(lvl)
+    return ReductionPlan(tuple(levels)) if changed else plan
 
 
 def resolve_plan(hier, reducer=None, plan: PlanLike = None,

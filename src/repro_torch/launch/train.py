@@ -21,11 +21,26 @@ seeded fault schedule, ``--telemetry`` adds the device-side statistics,
 ``--profile-dir`` writes a ``torch.profiler`` trace there, and ``--ckpt``
 saves the averaged model in the reference's checkpoint format.  Not
 ported yet, and refused with ``NotImplementedError``: ``--autotune``
-(ROADMAP Queue 1 item 8) and ``--fsdp`` above 1 (item 7).
+(ROADMAP Queue 1 item 8).
+
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT`` set) the learners spread over the ranks
+of the world as the reference's hier mesh lays them
+(``launch/mesh.py::rank_mesh``), ``--fsdp F`` giving each learner F ranks
+whose shard-aware buckets reduce by reduce-scatter + all-gather.  Each
+rank runs on ``cuda:LOCAL_RANK``, or all on ``cuda:0`` with
+``--share-device`` (gloo only: NCCL refuses two ranks on one card).
+Rank 0 alone prints and writes metrics, traces and checkpoints; the
+printed loss is the whole grid's.
+
+  torchrun --nproc_per_node 2 -m repro_torch.launch.train \
+      --arch rwkv6-1.6b --fsdp 2 --backend gloo --share-device
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 from contextlib import nullcontext
 
@@ -37,6 +52,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import HierAvgParams
 from repro_torch.core import (HierTopology, init_state, make_hier_round,
                               unstack_first)
+from repro_torch.core.plan import apply_shards
+from repro_torch.launch.mesh import level_process_groups
 from repro_torch.core.simulator import init_template
 from repro_torch.core.theory import level_reduction_seconds
 from repro_torch.data.loader import HierDataLoader
@@ -75,8 +92,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="pin the serial bucket schedule (default: the "
                          "pipelined engine)")
     ap.add_argument("--fsdp", type=int, default=1,
-                    help="shard the per-learner trailing dims F ways "
-                         "(not ported: ROADMAP Queue 1 item 7)")
+                    help="F ranks per learner (parallel/sharding.py "
+                         "ShardPlan): bucketed reductions pack shard-local "
+                         "runs and reduce them by reduce-scatter + "
+                         "all-gather; needs torchrun with learners x F "
+                         "or clusters x F ranks")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="torch.distributed backend under torchrun "
+                         "(default nccl on cuda, gloo on cpu)")
+    ap.add_argument("--share-device", action="store_true",
+                    help="put every rank on cuda:0 (gloo; for one card)")
     ap.add_argument("--autotune", default=None, metavar="CALIB_JSON",
                     help="cost-aware plan search (not ported: item 8)")
     ap.add_argument("--faults", default=None, metavar="SPEC",
@@ -92,7 +117,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--telemetry", action="store_true",
                     help="device-side gradient/divergence statistics in "
                          "the round (telemetry/gradstats.py; losses bit "
-                         "for bit the same, extra telemetry/* keys)")
+                         "for bit the same, extra telemetry/* keys); "
+                         "not under torchrun yet (item 8)")
     ap.add_argument("--metrics-out", default=None, metavar="JSONL",
                     help="write one schema-versioned train_round row "
                          "per round (telemetry/metrics.py JSONL sink)")
@@ -117,9 +143,6 @@ def main(argv=None) -> None:
     if args.autotune:
         raise NotImplementedError("--autotune is not ported yet: ROADMAP "
                                   "Queue 1 item 8")
-    if args.fsdp > 1:
-        raise NotImplementedError("--fsdp > 1 is not ported yet: ROADMAP "
-                                  "Queue 1 item 7")
     if args.learners % args.s:
         raise ValueError(f"--learners {args.learners} is not a multiple of "
                          f"--s {args.s}")
@@ -127,17 +150,74 @@ def main(argv=None) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available; pass "
                            "--device cpu to run on the CPU")
+    topo = HierTopology(pods=1, groups=args.learners // args.s,
+                        local=args.s)
+    mesh = None
+    if "WORLD_SIZE" in os.environ:
+        if args.telemetry:
+            raise NotImplementedError(
+                "--telemetry under torchrun is not ported yet: its "
+                "statistics need the level groups' means across ranks "
+                "(ROADMAP Queue 1 item 8)")
+        mesh, device = _join_world(args, topo, device)
+    elif args.fsdp > 1:
+        raise RuntimeError(f"--fsdp {args.fsdp} needs a process group: "
+                           f"start the run with torchrun (--nproc_per_node "
+                           f"= learners x fsdp or clusters x fsdp)")
+    try:
+        _train(args, topo, mesh, device)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _join_world(args, topo, device):
+    """Join the torchrun world and lay the learners over it: (the bound
+    mesh, this rank's device)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import rank_mesh
+    from repro_torch.parallel import collectives
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if device.type == "cuda":
+        device = torch.device("cuda", 0 if args.share_device
+                              else int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl" and args.share_device and world > 1:
+        raise ValueError("NCCL refuses two ranks on one card: use "
+                         "--backend gloo with --share-device")
+    addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
+    port = os.environ.get("MASTER_PORT", "29500")
+    dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
+                            rank=rank, world_size=world)
+    mesh = rank_mesh(topo, args.fsdp, world, rank)
+    if backend == "gloo" and device.type == "cuda":
+        refused = collectives.probe_gloo_cuda(device)
+        if refused:
+            raise RuntimeError(f"this gloo build refuses {refused} on CUDA "
+                               f"tensors: run one rank per card on NCCL")
+    return mesh, device
+
+
+def _train(args, topo, mesh, device) -> None:
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import make_constraint_fn, shard_plan
+    lead = mesh is None or mesh.rank == 0
+    shards = None if mesh is None else shard_plan(mesh)
+    cf = None if mesh is None else make_constraint_fn(mesh)
+    block = topo if mesh is None else mesh.block_topology(topo)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    topo = HierTopology(pods=1, groups=args.learners // args.s,
-                        local=args.s)
     hier = HierAvgParams(k1=args.k1, k2=args.k2, reducer=args.reducer,
                          plan=args.plan, bucket_bytes=args.bucket_bytes,
                          overlap=not args.no_overlap)
     bundle = build(cfg, device=device)
-    plan = hier.resolved_plan
+    plan = apply_shards(hier.resolved_plan, shards)
+    groups = {} if mesh is None else level_process_groups(mesh, plan)
     optimizer = sgd(step_decay_lr(
         args.lr, [args.rounds * hier.steps_per_round * 3 // 4], [0.1]))
 
@@ -146,7 +226,7 @@ def main(argv=None) -> None:
 
     loader = HierDataLoader(sample, topo=topo, hier=hier,
                             per_learner_batch=args.batch, seed=args.seed,
-                            device=device)
+                            mesh=mesh, device=device)
     counts = dict(plan.counts_per_round())
     template = None
     if args.faults or args.trace_out or args.profile_dir:
@@ -168,14 +248,16 @@ def main(argv=None) -> None:
 
     round_fn = make_hier_round(bundle.loss_fn, optimizer, hier,
                                elastic=faults is not None,
-                               telemetry=args.telemetry or None)
-    state = init_state(topo, bundle.init_train, optimizer,
+                               telemetry=args.telemetry or None,
+                               mesh=mesh, constraint_fn=cf, shards=shards)
+    state = init_state(block, bundle.init_train, optimizer,
                        torch.Generator(device=device).manual_seed(args.seed),
-                       plan=plan, device=device)
+                       plan=plan, shards=shards, device=device)
 
-    logger = MetricsLogger(args.metrics_out) if args.metrics_out else None
+    logger = (MetricsLogger(args.metrics_out)
+              if args.metrics_out and lead else None)
     tracer = (SpanTracer(profile_dir=args.profile_dir)
-              if (args.trace_out or args.profile_dir) else None)
+              if (args.trace_out or args.profile_dir) and lead else None)
     modeled_phases = None
     if tracer is not None:
         # the per-level compress/collective split rides as MODELED child
@@ -190,9 +272,14 @@ def main(argv=None) -> None:
                     (f"{lvl.name}/collective", comm_s * counts[lvl.name])]
         tracer.start_profiler()
 
-    print(f"Hier-AVG: {topo.describe()}  plan={plan.describe()} "
-          f"arch={cfg.name} device={device}"
-          + (f"  faults={faults.describe()}" if faults else ""))
+    if lead:
+        print(f"Hier-AVG: {topo.describe()}  plan={plan.describe()} "
+              f"arch={cfg.name} device={device}"
+              + (f"  faults={faults.describe()}" if faults else "")
+              + ("" if mesh is None else
+                 f"  mesh={tuple(mesh.shape.values())} ranks="
+                 f"{mesh.size} backend={_backend()} level groups="
+                 + "/".join(f"{k}:{_ranks(g)}" for k, g in groups.items())))
     for r in range(args.rounds):
         t0 = time.time()
         drec = None
@@ -211,10 +298,12 @@ def main(argv=None) -> None:
                     tracer.fence(metrics)
             with (tracer.span("host_sync")
                   if tracer else nullcontext()):
-                # one device->host copy for the round's metrics
-                m = {k: float(v) for k, v in
-                     zip(metrics, torch.stack([v.float() for v in
-                                               metrics.values()]).tolist())}
+                # one device->host copy for the round's metrics (the
+                # whole grid's: one all-reduce over the world)
+                vec = torch.stack([v.float() for v in metrics.values()])
+                if mesh is not None:
+                    vec = collectives.world_mean(vec)
+                m = {k: float(v) for k, v in zip(metrics, vec.tolist())}
         wall = time.time() - t0
         if tracer and modeled_phases:
             tracer.add_modeled_children(drec, modeled_phases)
@@ -226,11 +315,12 @@ def main(argv=None) -> None:
                 + f" wall~{round_wall(fracs) * 1e3:.2f}ms")
         else:
             fracs, extra = None, ""
-        print(f"round {r:3d}  loss={m['loss']:.4f} "
-              f"acc={m.get('accuracy', float('nan')):.3f} "
-              f"({wall:.1f}s, "
-              f"{loader.tokens_per_round * args.seq} tokens)" + extra,
-              flush=True)
+        if lead:
+            print(f"round {r:3d}  loss={m['loss']:.4f} "
+                  f"acc={m.get('accuracy', float('nan')):.3f} "
+                  f"({wall:.1f}s, "
+                  f"{loader.tokens_per_round * args.seq} tokens)" + extra,
+                  flush=True)
         if logger is not None:
             row = {"round": r, "loss": m["loss"],
                    "accuracy": m.get("accuracy", float("nan")),
@@ -253,10 +343,24 @@ def main(argv=None) -> None:
         logger.close()
         print(f"wrote {args.rounds} train_round rows to "
               f"{args.metrics_out}")
-    if args.ckpt:
+    if mesh is not None and lead:
+        print(f"collectives: {json.dumps(collectives.counts())}")
+    if args.ckpt and lead:
+        # rank 0's first learner is the grid's learner (0, 0, 0)
         save_checkpoint(args.ckpt, unstack_first(state.params),
                         step=int(state.step))
         print(f"saved averaged model to {args.ckpt}")
+
+
+def _backend() -> str:
+    import torch.distributed as dist
+    return str(dist.get_backend())
+
+
+def _ranks(group) -> int:
+    """The ranks of a level's process group (1: inside this rank)."""
+    import torch.distributed as dist
+    return 1 if group is None else dist.get_world_size(group)
 
 
 if __name__ == "__main__":

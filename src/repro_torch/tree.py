@@ -95,3 +95,26 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
             raise ValueError("tree_map over trees of different structure")
         others.append(lr)
     return unflatten(treedef, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def leaf_paths(tree: Any) -> List[str]:
+    """Each leaf's path in leaf order, as the reference's
+    ``parallel/sharding.py::_path_str`` spells it: dict keys, sequence
+    indices and named-tuple field names joined by ``/``."""
+    out: List[str] = []
+
+    def walk(node, parts):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], parts + [str(k)])
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for f, v in zip(node._fields, node):
+                walk(v, parts + [f])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, parts + [str(i)])
+        elif node is not None:
+            out.append("/".join(parts))
+
+    walk(tree, [])
+    return out

@@ -200,13 +200,20 @@ def test_pack_unpack_bit_exact_and_equal_to_jax():
 
 
 def test_layout_refuses_shards_and_short_leaves():
+    """Shard-aware layouts are built (no longer refused): a ShardPlan
+    threads into the layout and the wrapper, a replicated layout has no
+    bucket shardings, and a leaf without the learner axes still raises.
+    (tests/test_torch_parallel.py holds the sharded layouts against the
+    reference.)"""
+    from repro_torch.parallel.sharding import RankMesh, shard_plan
     tt, _ = _pair(_mixed_np())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcomm.BucketLayout.build(tt, shards=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcomm.Bucketed(tcomm.get_reducer("mean"), shards=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcomm.BucketLayout.build(tt).bucket_shardings()
+    sp = shard_plan(RankMesh((1, 1, 1, 2, 1),
+                             ("pod", "group", "local", "fsdp", "model")))
+    lay = tcomm.BucketLayout.build(tt, shards=sp)
+    assert lay.shards is sp and not lay.lead_invariant
+    assert len(lay.bucket_shardings()) == lay.n_buckets
+    assert tcomm.Bucketed(tcomm.get_reducer("mean"), shards=sp).shards is sp
+    assert tcomm.BucketLayout.build(tt).bucket_shardings() is None
     with pytest.raises(ValueError, match="leading learner axes"):
         tcomm.BucketLayout.build({"x": torch.zeros(3)})
 

@@ -349,17 +349,45 @@ def test_plan_backfills_k1_k2_and_refuses_the_bucket_engine():
             == [type(lv.reducer).__name__ for lv in jres_.levels]
     with pytest.raises(ValueError):
         HierAvgParams(plan="local@3/global@8")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tplan.apply_bucketing(h.resolved_plan, 64, shards=object())
+    # a ShardPlan threads into every bucket engine (no longer refused)
+    sp = _whole_grid_shards()
+    sharded = tplan.apply_bucketing(h.resolved_plan, 64, shards=sp)
+    assert all(lv.reducer.shards is sp for lv in sharded.levels
+               if isinstance(lv.reducer, tcomm.Bucketed))
+    assert tplan.apply_shards(sharded, None) is sharded
+
+
+def _whole_grid_shards():
+    from repro_torch.parallel.sharding import RankMesh, shard_plan
+    return shard_plan(RankMesh((1, 2, 2, 2, 1), ("pod", "group", "local",
+                                                 "fsdp", "model")))
 
 
 def test_unported_trainer_options_raise():
-    h, loss, opt = HierAvgParams(), tres.mlp_cls_loss, toptim.sgd(0.1)
-    for kw in ({"shards": object()}, {"constraint_fn": lambda t: t}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            th.make_hier_round(loss, opt, h, **kw)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            th.make_hier_step(loss, opt, h, **kw)
+    """``shards=`` and ``constraint_fn=`` are ported: on the whole
+    (1, 2, 2, 2, 1) grid in one process (an unbound mesh) a mean round and
+    a step through them equal the plain ones bit for bit (the learner mean
+    is elementwise, so shard runs change nothing)."""
+    from repro_torch.parallel.sharding import make_constraint_fn
+    h = HierAvgParams(plan="local@2:mean:bucketed/global@4:mean:bucketed")
+    loss, opt = tres.mlp_cls_loss, toptim.sgd(0.1)
+    sp = _whole_grid_shards()
+    topo = HierTopology(1, 2, 2)
+    p_np = _mlp_np_params(1)
+    init = lambda g: convert.tree_from_numpy(p_np, device="cpu")  # noqa
+    batch = _torch_batch(_round_batch(h.batch_dims, topo.shape, seed=2))
+    step_batch = tree_map(lambda x: x[0, 0], batch)
+    plain = th.init_state(topo, init, opt, None, device="cpu")
+    want, _ = th.make_hier_round(loss, opt, h)(plain, batch)
+    want_s, _ = th.make_hier_step(loss, opt, h)(plain, step_batch)
+    for kw in ({"shards": sp}, {"mesh": sp.mesh,
+                                "constraint_fn": make_constraint_fn(sp.mesh)}):
+        got, _ = th.make_hier_round(loss, opt, h, **kw)(plain, batch)
+        got_s, _ = th.make_hier_step(loss, opt, h, **kw)(plain, step_batch)
+        for a, b in zip(leaves(got.params), leaves(want.params)):
+            assert torch.equal(a, b), kw
+        for a, b in zip(leaves(got_s.params), leaves(want_s.params)):
+            assert torch.equal(a, b), kw
 
 
 @pytest.mark.parametrize("option", ["elastic", "telemetry", "faults",

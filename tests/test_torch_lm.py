@@ -314,9 +314,16 @@ def test_loader_shapes_streams_and_refusals():
     # every (step, learner) cell draws its own stream
     cells = r0["tokens"].reshape(-1, 3 * 8)
     assert len({tuple(c.tolist()) for c in cells}) == cells.shape[0]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        HierDataLoader(sample, topo=topo, hier=hier, per_learner_batch=3,
-                       mesh=object(), device="cpu")
+    # on a mesh of ranks (here rank 3 of (1, 2, 2, 1, 1), no world needed
+    # to read its block) a round is the rank's block of the whole round
+    from repro_torch.parallel.sharding import RankMesh
+    mesh = RankMesh((1, 2, 2, 1, 1), ("pod", "group", "local", "fsdp",
+                                      "model"), rank=3)
+    mine = HierDataLoader(sample, topo=topo, hier=hier, per_learner_batch=3,
+                          seed=7, mesh=mesh, device="cpu").next_round()
+    nd = len(hier.batch_dims)
+    for k in r0:
+        assert torch.equal(mine[k], mesh.take_block(r0[k], dim=nd))
     with pytest.raises(NotImplementedError, match="item 9"):
         make_train_batch(torch.Generator(),
                          get_config("seamless-m4t-large-v2"), 1, 8)
@@ -370,10 +377,25 @@ def test_train_cli_runs_moe_and_vlm_on_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--autotune", "x"], "item 8"), (["--fsdp", "2"], "item 7")])
-def test_train_cli_refuses_unported_flags(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+    (["--autotune", "x"], "item 8"), (["--fsdp", "2"], "torchrun")])
+def test_train_cli_refuses_unported_flags(flag, item, monkeypatch):
+    """``--autotune`` is still refused (item 8); ``--fsdp 2`` is ported and
+    fails only without a process group, naming torchrun."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    err = NotImplementedError if item == "item 8" else RuntimeError
+    with pytest.raises(err, match=item):
         ttrain.main(["--arch", "rwkv6-1.6b", "--device", "cpu", *flag])
+
+
+def test_train_cli_refuses_telemetry_under_torchrun(monkeypatch):
+    """``--telemetry`` under torchrun is refused before the world is
+    joined: its statistics need the level groups' means across ranks
+    (item 8)."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ttrain.main(["--arch", "rwkv6-1.6b", "--device", "cpu",
+                     "--telemetry"])
 
 
 _CLI = ["--arch", "rwkv6-1.6b", "--rounds", "1", "--learners", "4", "--s",

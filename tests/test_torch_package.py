@@ -46,7 +46,9 @@ def test_importing_every_module_leaves_jax_out():
               "data.synthetic", "models.resnet", "kernels.rwkv6_wkv",
               "kernels.flash_attention", "models.rwkv6", "models.stubs",
               "data.loader", "launch.train", "models.moe",
-              "models.attention", "models.common", "models.transformer"):
+              "models.attention", "models.common", "models.transformer",
+              "parallel.sharding", "parallel.collectives", "launch.mesh",
+              "testing", "checkpoint.checkpoint", "data.loader"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
