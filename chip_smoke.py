@@ -12,7 +12,10 @@ attention and top-k kernels; then serving of every trained family: the
 dense wave engine on StarCoder2-15B (its prefill through the attention
 kernel), RWKV-6 1.6B (its prefill through the WKV kernel, whose final
 state the decode carries on) and DeepSeek-V2-Lite's MLA and MoE on the
-paged engine.
+paged engine; then Hier-AVG on gloo ranks sharing the card, with the
+telemetry statistics taken across them, the autotune loop (the probe
+through the top-k, qint8 and QR kernels, the fit, the bill of the
+measured fires, --autotune) and the launcher under torchrun.
 
   python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -234,18 +237,44 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               gathered state against the one-process round on the card
               (the same shard-aware layout) within the CPU tests' limits,
               supports equal; one round's wall and, in another, its
-              collective seconds by kind; each process's peak memory
+              collective seconds by kind; each process's peak memory.
+              Telemetry on the ranks (the top-k plan): the statistics
+              across ranks equal on every rank, the trajectory bit for bit
+              the telemetry-off one, every telemetry/* value within
+              TEL_CARD_RTOL of a one-process round in the ranks' grouping
+              (each rank's learners' gradients as a group of their own),
+              a block-only EF mass (the control) outside it; the round
+              wall with telemetry on against off
+  21. autotune  the probe on the card in one process: the reference's
+              default grid and AUTOTUNE_LADDER (a payload ladder up to
+              phase 7's ResNet-18 fire, and top-k, qint8 and PowerSGD at
+              that size), launching topk_compress, qint8_pack/unpack and
+              batched_qr; the fit of its ICI samples (one card crosses no
+              slower link, so slow_bw stays unfitted), the fitted fields
+              and the median relative error; the fit's relative error on
+              AUTOTUNE_FIRE_POINTS (the device-bound codec points of the
+              ladder) within AUTOTUNE_FIRE_RTOL, where the uncalibrated
+              model and the fit with its codec rates halved (the
+              controls) fall outside it;
+              the calibrated bill of phases 7, 9A and 9B's global fires
+              against their walls measured above; launch.train.main
+              --autotune (reduced rwkv6, 2 rounds): the ranked plans and
+              wall_bias, its losses bit for bit those of --plan ranked[0]
   20. torchrun launch.train under torchrun --nproc_per_node 1 with the
-              NCCL backend (reduced rwkv6-1.6b): the process group, the
-              mesh and the per-round all-reduce of the metrics run on
-              NCCL; NCCL's multi-rank collectives need a machine with
-              several cards
+              NCCL backend (reduced rwkv6-1.6b), twice: the top-k plan
+              local@2/global@4:topk:0.05 with --telemetry (its rows carry
+              a positive EF mass of the global level), then --telemetry
+              --autotune on phase 21's artifact: the process group, the
+              mesh, the ranks' plan check and the per-round all-reduce of
+              the metrics run on NCCL; NCCL's multi-rank collectives need
+              a machine with several cards
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import gzip
 import json
@@ -288,6 +317,34 @@ TOPK_SLEEP_CYCLES = 10_000_000
 # grouped call: topk_small, topk_digit x 3, topk_compact)
 TOPK_LAUNCHES_PER_FIRE = 8
 TRAIN_PLAN = "local@2/global@8:topk:0.05"
+# phase 19: the world's telemetry against the one-process round in the
+# ranks' grouping, |world - one| <= TEL_CARD_RTOL * |one| per statistic.
+# The steps and the local fires are the same arithmetic on the same block
+# shapes; the global fire's mean sums the ranks in another order (within
+# 4 * 2^-23 * max|x| an element, ROADMAP Queue 3), and each statistic is
+# an fp32 sum of up to 4.5e7 non-negative terms (4 learners x 11,172,160)
+# in the card's reduction orders, a tree of partial sums whose chains
+# hold a few hundred terms: each order within ~(chain + log2 K) * 2^-24,
+# about 1e-5, of the exact sum.  The limit leaves a decade above that;
+# the control, the EF mass of a rank's block alone (the fault this
+# replaced), is about 0.75 of the grid's off
+TEL_CARD_RTOL = 1e-4
+# phase 21: what the card's fit must show.  The fit is the reference's
+# (four columns: ring bytes, per-message ring steps, dense bytes per
+# codec).  In one process a level's "collective" is the fixed-order tree
+# mean on the card, whose host cost (about nine eager calls a leaf,
+# 0.32-0.65 ms at the reference grid's 131-819 KB points) no column
+# bills: the least squares fit the ladder's device-bound points, and a
+# host-bound point's relative error is about 1 - w/t (w the device work,
+# t its time), below 1 but near it.  A limit on the median over a grid of
+# mostly host-bound points is therefore no test of the fit (a first limit
+# of 0.75, the reference's CPU tolerance, read 0.7666 on an H100 and was
+# withdrawn, PERF.md).  The gate is what the fit promises: the least
+# squares over non-negative rates, solved exactly, so its squared error in
+# seconds over the samples is below that of any other non-negative rates,
+# the reference's uncalibrated placeholders among them (the control,
+# printed beside it); and no slow tier.  The median relative error is
+# printed against the reference's 0.75, with each sample's
 TRAIN_ROUNDS = 3
 QINT8_BLOCK = 256
 # batched_qr against its plain version (the same CGS2 recurrence; rsqrtf
@@ -2041,7 +2098,7 @@ def phase_train(torch):
     print(f"phase 7 trace: {per_fire} top-k kernel launches in the round's "
           f"one global fire (limit {TOPK_LAUNCHES_PER_FIRE})" if kernels else
           "phase 7 trace: top-k launches per fire not measured (no trace)")
-    return launches, calls, walls
+    return launches, calls, walls, parts["global"]
 
 
 def mean_cast_bit_identity(torch, params):
@@ -2190,7 +2247,8 @@ def no_projection(torch, p):
 def phase_codec_train(torch):
     """Phase 9: plans A, B and C under the default bucketing (PowerSGD
     per leaf in plan C, the reducer's default layout); returns the launch
-    counts of each kernel on its plan's main path, summed over plans."""
+    counts of each kernel on its plan's main path, summed over plans, and
+    each plan's global fire wall (ms) by tag."""
     from repro_torch.configs.base import HierAvgParams
     from repro_torch.convert import train_state_to_numpy
     from repro_torch.core.hier_avg import make_hier_round
@@ -2219,7 +2277,7 @@ def phase_codec_train(torch):
               CODEC_PLANS[2]: {**none,
                                "batched_qr": RESNET_PSGD_LEAVES * TRAIN_ROUNDS,
                                "batched_qr_calls": TRAIN_ROUNDS}}
-    out = {}
+    out, fires = {}, {}
     for tag, spec in zip("ABC", CODEC_PLANS):
         hier = HierAvgParams(plan=spec)        # default bucketing
         # plan C's eval loss need not fall in 3 rounds (per-leaf PowerSGD at
@@ -2234,6 +2292,7 @@ def phase_codec_train(torch):
         for k, v in launches.items():
             out[k] = out.get(k, 0) + v
         parts = round_parts(torch, sim, res, loss_fn)
+        fires[tag] = parts["global"]
         layouts = "; ".join(
             f"{lvl.name}: {lvl.reducer.layout_for(res.state.params).describe()}"
             for lvl in sim.plan.levels if hasattr(lvl.reducer, "layout_for"))
@@ -2358,7 +2417,7 @@ def phase_codec_train(torch):
                       f"global fire)", TRAIN_CLASSES)
         del sim, res, batches
         torch.cuda.empty_cache()
-    return out
+    return out, fires
 
 
 # --------------------------------------------------------------------- #
@@ -4583,10 +4642,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     topk = timed("6", phase_topk, torch)
-    topk_launches, topk_calls, phase7_walls = timed("7", phase_train, torch)
+    topk_launches, topk_calls, phase7_walls, phase7_fire = timed(
+        "7", phase_train, torch)
     torch.cuda.empty_cache()
     pack, unpack, qr = timed("8", phase_codecs, torch)
-    codec_launches = timed("9", phase_codec_train, torch)
+    codec_launches, codec_fires = timed("9", phase_codec_train, torch)
     gc.collect()
     torch.cuda.empty_cache()
     wkv_fwd, wkv_bwd = timed("10", phase_wkv, torch)
@@ -4612,7 +4672,14 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     dist = timed("19", phase_ranks, torch)
-    timed("20", phase_torchrun, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tune_dir:
+        tuned, artifact = timed(
+            "21", phase_autotune, torch, tune_dir,
+            {"7": phase7_fire, "9A": codec_fires["A"],
+             "9B": codec_fires["B"]})
+        timed("20", phase_torchrun, torch, tune_dir, artifact)
     print(f"phase seconds: {json.dumps(seconds)}")
     # phase 16's bf16 launches and times at qwen2-vl's shape and the
     # serving phases' (4c, 17) at their prefill shapes beside the attention
@@ -4641,11 +4708,13 @@ def main() -> None:
 
     def entry(name, source, replaces, launches, numbers):
         # phase 14's launches beside each kernel its path runs, and
-        # phases 4c, 15-17's and 19's
+        # phases 4c, 15-17's, 19's and 21's (the probe)
         extra = ({"elastic_launches": elastic[name]} if name in elastic
                  else {})
         if name in dist:
             extra["ranks_launches"] = dist[name]
+        if name in tuned:
+            extra["autotune_launches"] = tuned[name]
         extra.update(later.get(name, {}))
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -4731,6 +4800,7 @@ def dist_rank(rank, world, out_dir):
     from repro_torch.parallel import collectives
     from repro_torch.parallel.sharding import (RankMesh, make_constraint_fn,
                                                shard_plan)
+    from repro_torch.telemetry import gradstats
     from repro_torch.tree import leaves
 
     torch.cuda.set_device(0)
@@ -4779,6 +4849,21 @@ def dist_rank(rank, world, out_dir):
              "launches": read_counts(counters),
              "collectives": collectives.counts(),
              "loss": float(collectives.world_mean(m["loss"].reshape(1)))}
+        tel = None
+        if spec == DIST_PLANS[0]:
+            # telemetry across the ranks: the same round with it on, the
+            # grid's statistics on every rank, the trajectory unchanged;
+            # the control is the EF mass of this rank's block alone
+            tel = make_hier_round(loss_fn, opt, hier, mesh=mesh,
+                                  constraint_fn=cf, shards=sp,
+                                  telemetry=True)
+            st_t, mt = tel(state0, b0)
+            r["tel_eq_off"] = same(st_t, state1)
+            r["telemetry"] = {k: float(v) for k, v in mt.items()
+                              if k.startswith("telemetry/")}
+            r["ef_mass_block"] = float(gradstats.ef_mass(
+                st_t.comm_state[plan.levels[-1].name]))
+            del st_t
         # kernel against plain, and an all-true mask against dense, on the
         # rank's own block, bit for bit
         plain = make_hier_round(loss_fn, opt, hier, mesh=mesh,
@@ -4794,6 +4879,9 @@ def dist_rank(rank, world, out_dir):
         if rank == 0:
             r["vs_one_process"] = one_process_round(
                 torch, hier, whole, loss_fn, init_fn, sample, r["loss"])
+            if tel is not None:
+                r["tel_one_process"] = one_process_telemetry(
+                    torch, hier, loss_fn, init_fn, sample)
         del whole
         # one round's wall, then one with each collective timed, every
         # rank starting together (rank 0 has just run the one-process
@@ -4801,6 +4889,8 @@ def dist_rank(rank, world, out_dir):
         st = state1
         for timed_round in (False, True):
             b = loader.next_round()
+            if not timed_round:
+                st_before, b_before = st, b
             torch.cuda.synchronize()
             collectives.barrier()
             collectives.reset_counts()
@@ -4811,9 +4901,22 @@ def dist_rank(rank, world, out_dir):
             torch.cuda.synchronize()
             key = "timed_round_ms" if timed_round else "round_ms"
             r[key] = (time.perf_counter() - t0) * 1e3
+            if not timed_round:
+                st_after = st
         r["collective_s"] = collectives.seconds()
+        if tel is not None:
+            # the untimed round again with telemetry on: its wall beside
+            # round_ms, and the same state
+            torch.cuda.synchronize()
+            collectives.barrier()
+            t0 = time.perf_counter()
+            st_t, _ = tel(st_before, b_before)
+            torch.cuda.synchronize()
+            r["tel_round_ms"] = (time.perf_counter() - t0) * 1e3
+            r["tel_eq_off_2"] = same(st_t, st_after)
+            del st_t
         rec["plans"][spec] = r
-        del st, state0, state1
+        del st, state0, state1, st_before, st_after
         torch.cuda.empty_cache()
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -4909,6 +5012,55 @@ def one_process_round(torch, hier, whole, loss_fn, init_fn, sample, loss):
                                           vmapped.params, vcs)}
 
 
+def one_process_telemetry(torch, hier, loss_fn, init_fn, sample):
+    """Phase 19's round with telemetry on, in one process on the card:
+    the whole (1, 2, 2) grid on the ranks' shard-aware layout (an unbound
+    mesh), each rank's learners' gradients taken as a group of their own
+    (the ranks' cuDNN group count), so that the round differs from the
+    world's only in the global fire's summation order.  Returns the
+    ``telemetry/*`` values."""
+    from repro_torch.core import hier_avg
+    from repro_torch.core.plan import resolve_plan
+    from repro_torch.core.topology import HierTopology
+    from repro_torch.data.loader import HierDataLoader
+    from repro_torch.optim import sgd
+    from repro_torch.parallel.sharding import RankMesh, shard_plan
+    from repro_torch.tree import tree_map
+
+    topo = HierTopology(*DIST_TOPO)
+    usp = shard_plan(RankMesh(DIST_MESH, HIER_AXES))
+    opt = sgd(0.1)
+    plan = resolve_plan(hier, None, None, shards=usp)
+    full = hier_avg.init_state(topo, init_fn, opt,
+                               torch.Generator(device="cuda").manual_seed(0),
+                               plan=plan, shards=usp, device="cuda")
+    batch = HierDataLoader(sample, topo=topo, hier=hier,
+                           per_learner_batch=DIST_BATCH, seed=5,
+                           device="cuda").next_round()
+    whole_grad_fn = hier_avg.stacked_grad_fn
+
+    def grouped(fn):
+        inner = whole_grad_fn(fn)
+
+        def grad_fn(params, b):
+            parts = [inner(tree_map(lambda x: x[:, g:g + 1], params),
+                           tree_map(lambda x: x[:, g:g + 1], b))
+                     for g in range(DIST_TOPO[1])]
+            return tuple(tree_map(lambda *xs: torch.cat(xs, dim=1),
+                                  *[p[i] for p in parts]) for i in (0, 1))
+
+        return grad_fn
+
+    hier_avg.stacked_grad_fn = grouped
+    try:
+        rnd = hier_avg.make_hier_round(loss_fn, opt, hier, shards=usp,
+                                       telemetry=True)
+    finally:
+        hier_avg.stacked_grad_fn = whole_grad_fn
+    _, m = rnd(full, batch)
+    return {k: float(v) for k, v in m.items() if k.startswith("telemetry/")}
+
+
 def phase_ranks(torch):
     """Phase 19: a gloo world of 4 processes on the card (see the module
     docstring); returns each kernel's launches summed over the ranks and
@@ -4974,18 +5126,252 @@ def phase_ranks(torch):
             out[k] = out.get(k, 0) + launches[k]
         if any(r["collectives"]["reduce_scatter"] == 0 for r in rs):
             fail(f"phase 19 {spec}: a rank ran no reduce-scatter")
+        if "telemetry" in rs[0]:
+            check_rank_telemetry(spec, rs)
     return out
 
 
-def phase_torchrun(torch):
-    """Phase 20: launch.train under torchrun, one process, NCCL."""
+def check_rank_telemetry(spec, rs):
+    """Phase 19's telemetry: the same values on every rank, the
+    trajectory unchanged, each statistic within TEL_CARD_RTOL of the
+    one-process round, the block-only control outside it."""
+    world = rs[0]["telemetry"]
+    one = rs[0]["tel_one_process"]
+    rel = {k: abs(world[k] - one[k]) / max(abs(one[k]), 1e-30)
+           for k in one}
+    ef = [k for k in world if k.startswith("telemetry/ef_mass/")]
+    ctl = {k: abs(r["ef_mass_block"] - world[k]) / world[k]
+           for r in rs for k in ef}
+    print(f"phase 19 {spec} telemetry on the ranks: {world}; relative "
+          f"difference from the one-process round (limit "
+          f"{TEL_CARD_RTOL:g}): max {max(rel.values()):.3e} "
+          f"{ {k.split('telemetry/')[1]: f'{v:.2e}' for k, v in rel.items()} }"
+          f"; control (a rank's block-only EF mass) "
+          f"{min(ctl.values()):.3e} to {max(ctl.values()):.3e} off; round "
+          f"wall ms, the world's, telemetry off "
+          f"{max(r['round_ms'] for r in rs):.1f} / on "
+          f"{max(r['tel_round_ms'] for r in rs):.1f} (per rank off "
+          f"{fmt([r['round_ms'] for r in rs])}, on "
+          f"{fmt([r['tel_round_ms'] for r in rs])}); trajectory on == off "
+          f"{[r['tel_eq_off'] and r['tel_eq_off_2'] for r in rs]}")
+    if any(r["telemetry"] != world for r in rs):
+        fail(f"phase 19 {spec}: the ranks read different telemetry: "
+             f"{[r['telemetry'] for r in rs]}")
+    if not all(r["tel_eq_off"] and r["tel_eq_off_2"] for r in rs):
+        fail(f"phase 19 {spec}: telemetry changed the trajectory on a rank")
+    if sorted(world) != sorted(one) or max(rel.values()) > TEL_CARD_RTOL:
+        fail(f"phase 19 {spec}: telemetry on the ranks against the "
+             f"one-process round: {rel}")
+    if min(ctl.values()) <= TEL_CARD_RTOL:
+        fail(f"phase 19 {spec}: the block-only EF mass control is within "
+             f"the limit: {ctl}")
+
+
+# --------------------------------------------------------------------- #
+# phase 21: the autotune loop on the card
+
+# a payload ladder past the reference grid's 64x64-160x160 leaves (which
+# the card reads as launch-bound), up to phase 7's fire: 16 learners of
+# 8 leaves of 1024 x 1364 fp32 (11,173,888 elements a learner, ResNet-18's
+# 11,172,160), and the three codecs with kernels at that size
+AUTOTUNE_LADDER = (
+    ("global", (1, 2, 4), "mean", 8, (256, 256)),
+    ("global", (1, 4, 4), "mean", 8, (512, 512)),
+    ("global", (1, 4, 4), "mean", 8, (1024, 1024)),
+    ("global", (1, 4, 4), "mean", 8, (1024, 1364)),
+    ("local", (1, 4, 4), "mean", 8, (1024, 1364)),
+    ("global", (1, 4, 4), "topk:0.05", 8, (1024, 1364)),
+    ("global", (1, 4, 4), "qint8:128", 8, (1024, 1364)),
+    ("global", (1, 4, 4), "powersgd:2", 8, (1024, 1364)),
+)
+AUTOTUNE_REPS = 12
+# the ladder's fire-size codec points: 2.3-9.5 ms each, device-bound (the
+# grid's host-bound points read 0.4-1.5 ms whatever their size).  Each
+# codec's rate is fitted to its points, the fire-size one 55 times the
+# bytes of the grid's; what is left at this size is the shared terms'
+# misfit and the min-of-12 spread (under 1%), so the fit must predict
+# each within 5%.  A 2x error in a codec's rate reads 40-80% off.
+AUTOTUNE_FIRE_POINTS = AUTOTUNE_LADDER[-3:]
+AUTOTUNE_FIRE_RTOL = 0.05
+AUTOTUNE_CLI = ["--arch", "rwkv6-1.6b", "--rounds", "2", "--learners", "4",
+                "--s", "2", "--batch", "2", "--seq", "64"]
+
+
+def autotune_cli(torch, argv, rows):
+    """``launch.train.main(argv)`` in this process under deterministic
+    algorithms (an operation without a deterministic version warns, and
+    its warnings are returned), its train_round rows to ``rows``:
+    (stdout, losses, warnings)."""
+    import io
+    import warnings
+
+    from repro_torch.launch import train as ttrain
+    buf = io.StringIO()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with contextlib.redirect_stdout(buf), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ttrain.main(argv + ["--metrics-out", rows])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    with open(rows) as f:
+        losses = [json.loads(ln)["loss"] for ln in f]
+    odd = sorted({str(w.message)[:120] for w in caught
+                  if "determinis" in str(w.message)})
+    return buf.getvalue(), losses, odd
+
+
+def phase_autotune(torch, out_dir, fire_walls):
+    """Phase 21 (see the module docstring).  ``fire_walls``: the global
+    fire walls (ms) phases 7, 9A and 9B measured.  Returns (each kernel's
+    launches in the probe, the calibration artifact's path)."""
+    from repro_torch.autotune import (ProbePoint, default_grid,
+                                      fit_comm_model, predict_seconds,
+                                      run_probe)
+    from repro_torch.configs.base import HierAvgParams
+    from repro_torch.core.plan import resolve_plan
+    from repro_torch.core.simulator import init_template
+    from repro_torch.core.theory import CommModel, level_reduction_seconds
+    from repro_torch.core.topology import HierTopology
+    from repro_torch.kernels.batched_qr import batched_qr as bq
+    from repro_torch.kernels.qint8_pack import qint8_pack as qp
+    from repro_torch.kernels.qint8_pack import qint8_unpack as qu
+    from repro_torch.kernels.topk_compress import topk_compress as tk
+
+    counters = {"topk_compress": tk, "qint8_pack": qp, "qint8_unpack": qu,
+                "batched_qr": bq}
+    points = default_grid() + [ProbePoint(*pt) for pt in AUTOTUNE_LADDER]
+    probe_json = os.path.join(out_dir, "probe.json")
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    samples = run_probe(points, reps=AUTOTUNE_REPS, out=probe_json)
+    probe_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    for s in samples:
+        print(f"phase 21 probe {s['level']}@{s['tier']} {s['spec']} "
+              f"{tuple(s['topo'])} {s['n_leaves']}x{s['leaf_shape'][0]}x"
+              f"{s['leaf_shape'][1]} cap {s['cap']}: dense "
+              f"{s['dense_bytes']} B, payload {s['payload_bytes']} B, "
+              f"{s['messages']} messages, min {s['min_us']} us, median "
+              f"{s['warm_us']} us, first {s['compile_s']} s")
+    for k in ("topk_compress", "qint8_pack", "qint8_unpack", "batched_qr"):
+        if not launches[k]:
+            fail(f"phase 21: the probe did not launch {k}: {launches}")
+    # one card: a "dci" sample crossed no slower link than an "ici" one,
+    # so the fit reads the ici samples and leaves slow_bw unfitted
+    ici = [s for s in samples if s["tier"] == "ici"]
+    cal = fit_comm_model(ici, source=probe_json)
+    artifact = os.path.join(out_dir, "calibration.json")
+    cal.save(artifact)
+    dci_rel = sorted(abs(predict_seconds(cal.model, s) - s["min_us"] * 1e-6)
+                     / (s["min_us"] * 1e-6)
+                     for s in samples if s["tier"] == "dci")
+    m = cal.model
+    def rel(model, s):
+        t = s["min_us"] * 1e-6
+        return abs(predict_seconds(model, s) - t) / t
+
+    def sq_err(model):
+        return sum((predict_seconds(model, s) - s["min_us"] * 1e-6) ** 2
+                   for s in ici)
+
+    placeholder = statistics.median(rel(CommModel(), s) for s in ici)
+    rss, rss_placeholder = sq_err(m), sq_err(CommModel())
+    fire = [s for s in ici if (s["level"], tuple(s["topo"]), s["spec"],
+                               s["n_leaves"], tuple(s["leaf_shape"]))
+            in AUTOTUNE_FIRE_POINTS]
+    halved = dataclasses.replace(m, codec_bw=tuple(
+        (c, bw / 2) for c, bw in m.codec_bw or ()))
+    fire_rel = {name: max(rel(model, s) for s in fire) for name, model in (
+        ("fit", m), ("placeholders", CommModel()),
+        ("codec rates halved", halved),
+        ("fast_bw halved", dataclasses.replace(m, fast_bw=m.fast_bw / 2)))}
+    print(f"phase 21 fit ({len(ici)} ici samples of {len(samples)}, probe "
+          f"{probe_s:.1f}s, launches {launches}): fitted {list(cal.fitted)}; "
+          f"fast_bw {m.fast_bw:.6e} B/s, latency {m.latency:.6e} s, "
+          f"compress_bw {m.compress_bw:.6e} B/s, codec_bw {m.codec_bw}, "
+          f"slow_bw {m.slow_bw:.6e} (fitted: {'slow_bw' in cal.fitted}); "
+          f"median relative error {cal.median_rel_err:.4f} (the reference's "
+          f"CPU tolerance 0.75: "
+          f"{'within' if cal.median_rel_err <= 0.75 else 'outside'}; the "
+          f"uncalibrated placeholder rates {placeholder:.4f}), max "
+          f"{cal.max_rel_err:.4f}; squared error {rss:.6e} s^2 against the "
+          f"placeholders' {rss_placeholder:.6e}; per sample "
+          f"{[round(rel(m, s), 3) for s in ici]}; the dci samples under it "
+          f"(not fitted): median {dci_rel[len(dci_rel) // 2]:.4f}; largest "
+          f"relative error on the {len(fire)} fire-size codec points (limit "
+          f"{AUTOTUNE_FIRE_RTOL}): "
+          f"{ {k: round(v, 4) for k, v in fire_rel.items()} }")
+    if "slow_bw" in cal.fitted:
+        fail("phase 21: the fit read a slow tier from one card")
+    if len(fire) != len(AUTOTUNE_FIRE_POINTS) \
+            or fire_rel["fit"] > AUTOTUNE_FIRE_RTOL:
+        fail(f"phase 21: the fit misses the fire-size codec points: "
+             f"{fire_rel}")
+    for ctl in ("placeholders", "codec rates halved"):
+        if fire_rel[ctl] <= AUTOTUNE_FIRE_RTOL:
+            fail(f"phase 21: the control ({ctl}) is within the limit: "
+                 f"{fire_rel}")
+
+    # the calibrated bill of the global fires phases 7 and 9 measured
+    loss_fn, init_fn, _, _ = resnet_task(torch)
+    template = init_template(init_fn, "cuda")
+    topo = HierTopology(1, 4, 4)
+    bills = []
+    for tag, hier in (("7", HierAvgParams(plan=TRAIN_PLAN, bucket_bytes=0)),
+                      ("9A", HierAvgParams(plan=CODEC_PLANS[0])),
+                      ("9B", HierAvgParams(plan=CODEC_PLANS[1]))):
+        lvl = resolve_plan(hier, None, None).levels[-1]
+        cal_ms = level_reduction_seconds(lvl, topo, template, m)[2] * 1e3
+        ref_ms = level_reduction_seconds(lvl, topo, template,
+                                         CommModel())[2] * 1e3
+        wall = fire_walls[tag]
+        bills.append(f"{tag} {lvl.describe()}: measured {wall:.3f} ms, "
+                     f"calibrated bill {cal_ms:.3f} ms (measured/billed "
+                     f"{wall / cal_ms:.3f}), uncalibrated bill {ref_ms:.3f}"
+                     f" ms")
+    print("phase 21 bill of the global fires (P = 16 as (1, 4, 4), "
+          "ResNet-18's parameters): " + "; ".join(bills))
+
+    # --autotune against --plan ranked[0], in this process
+    out, auto, odd = autotune_cli(
+        torch, AUTOTUNE_CLI + ["--autotune", artifact],
+        os.path.join(out_dir, "auto.jsonl"))
+    ranked = [ln.strip() for ln in out.splitlines() if ln.startswith("  #")]
+    ctl = [ln for ln in out.splitlines() if ln.startswith("controller:")]
+    if len(ranked) != 3 or not ctl:
+        fail(f"phase 21: --autotune printed no ranking or no controller "
+             f"line:\n{out}")
+    top = ranked[0].split()[1]
+    _, plain, odd2 = autotune_cli(torch, AUTOTUNE_CLI + ["--plan", top],
+                                  os.path.join(out_dir, "plan.jsonl"))
+    print(f"phase 21 --autotune (reduced rwkv6-1.6b, 2 rounds): ranked "
+          f"{ranked}; {ctl[0]}; losses {auto} against --plan {top} {plain}"
+          f"; operations without a deterministic version: "
+          f"{sorted(set(odd + odd2)) or 'none'}")
+    if len(auto) != 2 or auto != plain:
+        fail(f"phase 21: --autotune's losses {auto} differ from --plan "
+             f"{top}'s {plain}")
+    return launches, artifact
+
+
+TORCHRUN_PLAN = "local@2/global@4:topk:0.05"
+
+
+def torchrun_train(label, extra):
+    """launch.train under torchrun, one process, NCCL, reduced rwkv6-1.6b
+    for 2 rounds, with ``extra`` arguments: (lines, seconds).  Fails
+    unless the run exits 0 with 2 finite rounds and the metrics'
+    all-reduce on NCCL."""
     from repro_torch.testing import _free_port
     cmd = [sys.executable, "-m", "torch.distributed.run",
            "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
            "--master_port", str(_free_port()), "-m",
            "repro_torch.launch.train", "--arch", "rwkv6-1.6b", "--rounds",
            "2", "--learners", "4", "--batch", "2", "--seq", "64",
-           "--backend", "nccl", "--plan", "local@2/global@4:topk:0.05"]
+           "--backend", "nccl"] + extra
     # S keeps its default (2): torchrun's own parser reads "--s" as an
     # abbreviation of its options
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
@@ -4997,21 +5383,50 @@ def phase_torchrun(torch):
     lines = proc.stdout.splitlines()
     rounds = [ln for ln in lines if ln.startswith("round ")]
     coll = [ln for ln in lines if ln.startswith("collectives: ")]
-    print(f"phase 20 torchrun --nproc_per_node 1 --backend nccl (reduced "
-          f"rwkv6-1.6b, 2 rounds): exit {proc.returncode} in {wall:.1f}s; "
-          + " | ".join(ln for ln in lines if ln.startswith("Hier-AVG"))
+    print(f"phase 20 torchrun --nproc_per_node 1 --backend nccl {label} "
+          f"(reduced rwkv6-1.6b, 2 rounds): exit {proc.returncode} in "
+          f"{wall:.1f}s; "
+          + " | ".join(ln for ln in lines if ln.startswith(
+              ("Hier-AVG", "autotune", "  #", "controller")))
           + " | " + " | ".join(rounds + coll))
     if proc.returncode != 0:
-        fail(f"phase 20: launch.train under torchrun failed:\n"
+        fail(f"phase 20 {label}: launch.train under torchrun failed:\n"
              f"{proc.stderr[-3000:]}")
     if not any("backend=nccl" in ln for ln in lines) or len(rounds) != 2:
-        fail(f"phase 20: no NCCL run of 2 rounds in {lines}")
+        fail(f"phase 20 {label}: no NCCL run of 2 rounds in {lines}")
     losses = [float(ln.split("loss=")[1].split()[0]) for ln in rounds]
     if not all(math.isfinite(v) for v in losses):
-        fail(f"phase 20: losses {losses}")
+        fail(f"phase 20 {label}: losses {losses}")
     if not coll or json.loads(coll[0][len("collectives: "):])[
             "all_reduce"] < 2:
-        fail(f"phase 20: the metrics' all-reduce did not run on NCCL: {coll}")
+        fail(f"phase 20 {label}: the metrics' all-reduce did not run on "
+             f"NCCL: {coll}")
+    return lines
+
+
+def phase_torchrun(torch, out_dir, artifact):
+    """Phase 20: launch.train under torchrun, one process, NCCL: the top-k
+    plan with telemetry, then telemetry and the plan phase 21's
+    calibration ranks first."""
+    rows_path = os.path.join(out_dir, "torchrun_topk.jsonl")
+    torchrun_train(f"--plan {TORCHRUN_PLAN} --telemetry",
+                   ["--plan", TORCHRUN_PLAN, "--telemetry",
+                    "--metrics-out", rows_path])
+    with open(rows_path) as f:
+        rows = [json.loads(ln) for ln in f]
+    ef = [r.get("telemetry/ef_mass/global") for r in rows]
+    print(f"phase 20 --plan {TORCHRUN_PLAN} --telemetry rows: "
+          + " | ".join(json.dumps({k: v for k, v in r.items()
+                                   if k.startswith("telemetry/")})
+                       for r in rows))
+    if len(rows) != 2 or not all(
+            v is not None and math.isfinite(v) and v > 0 for v in ef):
+        fail(f"phase 20: the top-k run's rows carry no positive EF mass of "
+             f"the global level: {ef}")
+    lines = torchrun_train("--telemetry --autotune",
+                           ["--telemetry", "--autotune", artifact])
+    if not any(ln.startswith("controller:") for ln in lines):
+        fail(f"phase 20: --autotune printed no controller line: {lines}")
 
 
 if __name__ == "__main__":

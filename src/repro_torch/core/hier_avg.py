@@ -341,24 +341,21 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
     levels shard-locally and runs their means as reduce-scatter +
     all-gather; pass the same ``shards`` to ``init_state``.  ``state``
     and ``round_batch`` hold this rank's block of the learners, ``active``
-    the whole grid's mask, and the metrics are means over the block.
-    ``telemetry`` is refused there: its statistics are means over a
-    level's groups, which a rank's block does not hold (ROADMAP item 8).
+    the whole grid's mask, and the metrics are means over the block, but
+    for the ``telemetry/...`` keys: those are the whole grid's, equal on
+    every rank (telemetry/gradstats.py takes the level groups' means and
+    the per-learner totals across ranks).
     """
     from repro_torch.telemetry.gradstats import (level_stats,
                                                  make_grad_observer,
                                                  resolve_telemetry)
     mesh = _round_mesh(mesh, shards)
     tcfg = resolve_telemetry(telemetry)
-    if tcfg is not None and mesh is not None:
-        raise NotImplementedError(
-            "telemetry= on a mesh of ranks: the statistics need the level "
-            "groups' means across ranks (ROADMAP item 8)")
     p = resolve_plan(hier, reducer, plan, shards=shards)
     sgd_step = make_sgd_step(loss_fn, optimizer, grad_postprocess,
                              microbatch=microbatch,
                              grad_observer=make_grad_observer(
-                                 tcfg, p.levels) if tcfg else None)
+                                 tcfg, p.levels, mesh) if tcfg else None)
     _reduce = _make_reduce(mesh, constraint_fn, sync_opt_state)
     last = len(p.levels) - 1
     n_dims = len(p.batch_dims)
@@ -392,7 +389,7 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
                     # absent learners keep their (stale) params and
                     # count toward divergence, as in the reference
                     for k, v in level_stats(tcfg, level, pre, state.params,
-                                            state.comm_state).items():
+                                            state.comm_state, mesh).items():
                         stats.setdefault(k, []).append(v)
                     pre = None
         # metrics leaves: [steps, pods, G, S] -> scalar means; a level's

@@ -9,7 +9,8 @@ every bill is the reference's to the last bit for the same shapes.
 :class:`CommModel`'s defaults are the reference's modeled link and codec
 rates, kept so that ``cm=None`` bills exactly as the reference does.
 They are uncalibrated placeholders, not rates of any device this port
-runs on; calibration is ROADMAP Queue 1 item 8.
+runs on; a calibration artifact (``repro_torch.autotune``: the probe on
+the card, then the fit) gives a model that bills the card.
 """
 from __future__ import annotations
 

@@ -18,10 +18,17 @@ The flags are the reference's: ``--faults`` trains elastic rounds under a
 seeded fault schedule, ``--telemetry`` adds the device-side statistics,
 ``--metrics-out`` writes one ``train_round`` JSONL row per round,
 ``--trace-out`` exports the round spans as a Chrome trace,
-``--profile-dir`` writes a ``torch.profiler`` trace there, and ``--ckpt``
-saves the averaged model in the reference's checkpoint format.  Not
-ported yet, and refused with ``NotImplementedError``: ``--autotune``
-(ROADMAP Queue 1 item 8).
+``--profile-dir`` writes a ``torch.profiler`` trace there, ``--ckpt``
+saves the averaged model in the reference's checkpoint format, and
+``--autotune CALIB_JSON`` ranks plans under a calibration artifact
+(``repro_torch.autotune``: probe, then calibrate), trains the top one
+and reports its measured round wall against the calibrated bill:
+
+  PYTHONPATH=src python -m repro_torch.autotune.probe --out probe.json
+  PYTHONPATH=src python -m repro_torch.autotune.calibrate probe.json \
+      --out calib.json
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
+      --rounds 2 --autotune calib.json
 
 Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT`` set) the learners spread over the ranks
@@ -31,7 +38,11 @@ whose shard-aware buckets reduce by reduce-scatter + all-gather.  Each
 rank runs on ``cuda:LOCAL_RANK``, or all on ``cuda:0`` with
 ``--share-device`` (gloo only: NCCL refuses two ranks on one card).
 Rank 0 alone prints and writes metrics, traces and checkpoints; the
-printed loss is the whole grid's.
+printed loss is the whole grid's, and so are the ``telemetry/*``
+statistics (computed across the ranks).  Each round starts on a barrier
+and its wall is the largest over the ranks.  With ``--autotune`` every
+rank runs the search, and the ranks' plans are checked to be one before
+any level's process group is made.
 
   torchrun --nproc_per_node 2 -m repro_torch.launch.train \
       --arch rwkv6-1.6b --fsdp 2 --backend gloo --share-device
@@ -103,7 +114,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--share-device", action="store_true",
                     help="put every rank on cuda:0 (gloo; for one card)")
     ap.add_argument("--autotune", default=None, metavar="CALIB_JSON",
-                    help="cost-aware plan search (not ported: item 8)")
+                    help="calibration artifact (autotune/calibrate.py); "
+                         "runs the cost-aware plan search over the "
+                         "model's parameter tree and trains the "
+                         "recommended plan - wins over --plan/--k1/--k2")
     ap.add_argument("--faults", default=None, metavar="SPEC",
                     help="elastic membership: a deterministic fault "
                          "schedule (repro_torch/elastic) driving per-round "
@@ -117,8 +131,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--telemetry", action="store_true",
                     help="device-side gradient/divergence statistics in "
                          "the round (telemetry/gradstats.py; losses bit "
-                         "for bit the same, extra telemetry/* keys); "
-                         "not under torchrun yet (item 8)")
+                         "for bit the same, extra telemetry/* keys; under "
+                         "torchrun the whole grid's, across the ranks)")
     ap.add_argument("--metrics-out", default=None, metavar="JSONL",
                     help="write one schema-versioned train_round row "
                          "per round (telemetry/metrics.py JSONL sink)")
@@ -140,9 +154,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.autotune:
-        raise NotImplementedError("--autotune is not ported yet: ROADMAP "
-                                  "Queue 1 item 8")
     if args.learners % args.s:
         raise ValueError(f"--learners {args.learners} is not a multiple of "
                          f"--s {args.s}")
@@ -154,11 +165,6 @@ def main(argv=None) -> None:
                         local=args.s)
     mesh = None
     if "WORLD_SIZE" in os.environ:
-        if args.telemetry:
-            raise NotImplementedError(
-                "--telemetry under torchrun is not ported yet: its "
-                "statistics need the level groups' means across ranks "
-                "(ROADMAP Queue 1 item 8)")
         mesh, device = _join_world(args, topo, device)
     elif args.fsdp > 1:
         raise RuntimeError(f"--fsdp {args.fsdp} needs a process group: "
@@ -216,6 +222,12 @@ def _train(args, topo, mesh, device) -> None:
                          plan=args.plan, bucket_bytes=args.bucket_bytes,
                          overlap=not args.no_overlap)
     bundle = build(cfg, device=device)
+    controller = None
+    if args.autotune:
+        hier, controller = _autotune(args, topo, hier, bundle, shards,
+                                     device, lead)
+        if mesh is not None:
+            _same_plan_on_every_rank(hier.plan, device)
     plan = apply_shards(hier.resolved_plan, shards)
     groups = {} if mesh is None else level_process_groups(mesh, plan)
     optimizer = sgd(step_decay_lr(
@@ -281,6 +293,9 @@ def _train(args, topo, mesh, device) -> None:
                  f"{mesh.size} backend={_backend()} level groups="
                  + "/".join(f"{k}:{_ranks(g)}" for k, g in groups.items())))
     for r in range(args.rounds):
+        if mesh is not None:
+            # the round's wall is the world's: every rank starts together
+            collectives.barrier()
         t0 = time.time()
         drec = None
         with (tracer.span(f"round[{r}]", args={"round": r})
@@ -299,12 +314,18 @@ def _train(args, topo, mesh, device) -> None:
             with (tracer.span("host_sync")
                   if tracer else nullcontext()):
                 # one device->host copy for the round's metrics (the
-                # whole grid's: one all-reduce over the world)
+                # whole grid's: one all-reduce over the world; the
+                # telemetry statistics are the grid's on every rank)
                 vec = torch.stack([v.float() for v in metrics.values()])
                 if mesh is not None:
-                    vec = collectives.world_mean(vec)
+                    vec = torch.where(
+                        torch.tensor([k.startswith("telemetry/")
+                                      for k in metrics], device=vec.device),
+                        vec, collectives.world_mean(vec))
                 m = {k: float(v) for k, v in zip(metrics, vec.tolist())}
         wall = time.time() - t0
+        if mesh is not None:
+            wall = collectives.world_max(wall, device)
         if tracer and modeled_phases:
             tracer.add_modeled_children(drec, modeled_phases)
         if faults is not None:
@@ -321,7 +342,7 @@ def _train(args, topo, mesh, device) -> None:
                   f"({wall:.1f}s, "
                   f"{loader.tokens_per_round * args.seq} tokens)" + extra,
                   flush=True)
-        if logger is not None:
+        if logger is not None or controller is not None:
             row = {"round": r, "loss": m["loss"],
                    "accuracy": m.get("accuracy", float("nan")),
                    "wall_s": wall, "plan": plan.describe()}
@@ -331,7 +352,10 @@ def _train(args, topo, mesh, device) -> None:
                 row["active_frac"] = {
                     lvl.name: f for lvl, f in zip(plan.levels, fracs)}
                 row["modeled_wall_s"] = round_wall(fracs)
-            logger.log_row("train_round", **row)
+            if logger is not None:
+                logger.log_row("train_round", **row)
+            if controller is not None:
+                controller.observe(row)
 
     if tracer is not None:
         tracer.stop_profiler()
@@ -343,6 +367,13 @@ def _train(args, topo, mesh, device) -> None:
         logger.close()
         print(f"wrote {args.rounds} train_round rows to "
               f"{args.metrics_out}")
+    if (controller is not None and lead
+            and controller.observed_wall_s is not None):
+        print(f"controller: measured {controller.observed_wall_s * 1e3:.2f}"
+              f"ms/round vs modeled comm "
+              f"{controller.modeled_round_wall_s * 1e3:.3f}ms "
+              f"(x{controller.wall_bias():.0f} incl. compute/host; "
+              f"wall_bias={controller.wall_bias():.6g})")
     if mesh is not None and lead:
         print(f"collectives: {json.dumps(collectives.counts())}")
     if args.ckpt and lead:
@@ -350,6 +381,61 @@ def _train(args, topo, mesh, device) -> None:
         save_checkpoint(args.ckpt, unstack_first(state.params),
                         step=int(state.step))
         print(f"saved averaged model to {args.ckpt}")
+
+
+def _autotune(args, topo, hier, bundle, shards, device, lead):
+    """The reference's ``--autotune``: load the calibration, rank the plans
+    over the model's parameter tree (meta tensors), print the top 3, and
+    return (``hier`` training the first, a ``CostAwarePlan`` observing
+    its rounds)."""
+    import dataclasses
+
+    from repro_torch.autotune import (Calibration, CostAwarePlan,
+                                      search_plans)
+    cal = Calibration.load(args.autotune)
+    template = init_template(bundle.init_train, device)
+    ranked = search_plans(topo, cal, template=template, B=args.batch,
+                          T_ref=args.rounds * hier.steps_per_round,
+                          bucket_bytes=hier.bucket_bytes,
+                          overlap=hier.overlap, top=3,
+                          drop_prob=args.drop_prob)
+    if lead:
+        print(f"autotune [{args.autotune}; fitted {list(cal.fitted)}"
+              + (f"; drop_prob={args.drop_prob:g}" if args.drop_prob
+                 else "") + "]:")
+        for i, sp in enumerate(ranked):
+            print(f"  #{i} {sp.spec}  comm_ms/step="
+                  f"{sp.comm_s_per_step * 1e3:.3f} score={sp.score:.3e} "
+                  f"feasible={sp.feasible}")
+    hier = dataclasses.replace(hier, plan=ranked[0].spec)
+    controller = CostAwarePlan(plan=ranked[0].spec, topo=topo, comm=cal,
+                               template=template,
+                               bucket_bytes=hier.bucket_bytes,
+                               overlap=hier.overlap, shards=shards,
+                               drop_prob=args.drop_prob)
+    return hier, controller
+
+
+def _plan_hash(spec: str) -> int:
+    """A plan spec's sha256, cut to a non-negative int64."""
+    import hashlib
+    return int.from_bytes(hashlib.sha256(spec.encode()).digest()[:7], "big")
+
+
+def _same_plan_on_every_rank(spec: str, device) -> None:
+    """Fail unless every rank of the world chose ``spec``: each rank's
+    plan hash, gathered.  Different plans would make different process
+    groups and collectives, and the world would hang."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import collectives
+    got = collectives.all_gather(
+        torch.tensor([_plan_hash(spec)], dtype=torch.int64, device=device),
+        None, dist.get_world_size()).tolist()
+    if len(set(got)) != 1:
+        raise RuntimeError(f"--autotune: the ranks chose different plans "
+                           f"(plan hashes by rank {got}; this rank "
+                           f"{dist.get_rank()} chose {spec!r})")
 
 
 def _backend() -> str:

@@ -186,3 +186,13 @@ def world_mean(values: torch.Tensor, group: Optional[object] = None
     import torch.distributed as dist
     out = all_reduce(values.clone(), group)
     return out / dist.get_world_size(group)
+
+
+def world_max(value: float, device, group: Optional[object] = None
+              ) -> float:
+    """The largest of every rank's ``value`` (one all-gather over
+    ``group``, the world by default): the world's wall of a step that
+    every rank timed from a barrier."""
+    import torch.distributed as dist
+    x = torch.tensor([value], dtype=torch.float64, device=device)
+    return float(all_gather(x, group, dist.get_world_size(group)).max())

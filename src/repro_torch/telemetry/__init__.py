@@ -12,10 +12,10 @@ Three layers, composable and individually optional:
 * :mod:`repro_torch.telemetry.gradstats` — device-side statistics inside
   the round behind ``make_hier_round(..., telemetry=)``: per-level
   parameter divergence, gradient-norm variance, EF residual mass,
-  codec compression error.
+  codec compression error (on a mesh of ranks, the whole grid's).
 
-The reference's first consumer of the rows, ``CostAwarePlan.observe``,
-belongs to autotune (ROADMAP Queue 1 item 8).
+The rows' first consumer is ``repro_torch.autotune.CostAwarePlan.observe``
+(``launch/train.py --autotune``).
 """
 from repro_torch.telemetry.gradstats import (TelemetryConfig, codec_error,
                                              ef_mass, group_divergence,

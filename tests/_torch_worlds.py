@@ -2,7 +2,8 @@
 spawns.  Every rank imports this module, so it imports the port and
 numpy, never JAX.  Each world runs every case once and writes what the
 tests read: rank 0 the whole grid's results (``<world>.npz``), every
-rank its own checks and collective counts (``<world>-<rank>.json``).
+rank its own checks, collective counts and telemetry values
+(``<world>-<rank>.json``).
 
 The worlds (the learner grid is (1, 2, 2) in all three):
   a — mesh (1, 2, 2, 1, 1): every learner on a rank of its own;
@@ -33,6 +34,7 @@ from repro_torch.parallel.sharding import make_constraint_fn, shard_plan
 from repro_torch.testing import (AB_SMALL_CAP, build_ab_reduction,
                                  build_sharded_ab_reduction,
                                  count_collective_ops, world_rank_mesh)
+from repro_torch.telemetry import gradstats as gs
 from repro_torch.tree import leaves
 
 TOPO = (1, 2, 2)
@@ -49,6 +51,9 @@ ROUND_PLANS = {"a": "local@2/global@4:topk:0.25",
                "c": "local@2/global@4:topk:0.25"}
 ROUNDS = 2
 B = 4
+# the telemetry rounds: a stateful (top-k) global level on every world,
+# so world b holds its EF state in shard rows (fsdp 2)
+TEL_PLAN = "local@2/global@4:topk:0.25"
 
 
 def reduction_inputs():
@@ -119,6 +124,12 @@ def _reductions(world, mesh, topo, out, checks, ckpt_dir):
                 # shard-space EF through a checkpoint of the rank grid
                 path = os.path.join(ckpt_dir, f"ef-{world}")
                 rows = red.state_rows(st1, p)
+                # the EF mass across ranks, each shard row once; controls:
+                # the rank's block alone, and every row summed over fsdp
+                checks["ef_mass_mesh"] = float(gs.ef_mass(st1, mesh, rows))
+                checks["ef_mass_block"] = float(gs.ef_mass(st1))
+                checks["ef_mass_all_rows"] = float(gs.ef_mass(
+                    st1, mesh, rows._replace(err=[True] * len(st1.err))))
                 save_checkpoint(path, st1, mesh=mesh, topo=topo, rows=rows)
                 back = restore_checkpoint(path, st, mesh=mesh, topo=topo,
                                           rows=rows)
@@ -223,6 +234,56 @@ def _round(world, mesh, topo, p_np, batches, out, checks, ckpt_dir):
     checks["ckpt_path"] = path
 
 
+def _telemetry(world, mesh, topo, p_np, batches, checks):
+    """ROUNDS rounds of TEL_PLAN with telemetry on and off from the numpy
+    init: every rank's ``telemetry/*`` values per round, whether the two
+    trajectories are bit for bit the same, and the telemetry-on round's
+    collectives.  Then the divergence of the reduction inputs' distinct
+    learners over the whole grid, across ranks and (the control) over the
+    rank's block alone."""
+    p = {k: mesh.take_block(v) for k, v in _t(reduction_inputs()[0]).items()}
+    checks["div_mesh"] = float(gs.group_divergence(p, (0, 1, 2), mesh))
+    checks["div_block"] = float(gs.group_divergence(p, (0, 1, 2)))
+    sp = shard_plan(mesh)
+    cf = make_constraint_fn(mesh)
+    h = HierAvgParams(plan=TEL_PLAN)
+    opt = toptim.sgd(0.1, momentum=0.9)
+    plan = th.resolve_plan(h, None, None, shards=sp)
+
+    def init(_):
+        return convert.tree_from_numpy(p_np, device="cpu")
+
+    states = [th.init_state(mesh.block_topology(topo), init, opt, None,
+                            plan=plan, shards=sp, device="cpu")
+              for _ in range(2)]
+    rnds = [th.make_hier_round(tres.mlp_cls_loss, opt, h, mesh=mesh,
+                               constraint_fn=cf, shards=sp, telemetry=t)
+            for t in (True, None)]
+    nd = len(h.batch_dims)
+    same = True
+    for r, b in enumerate(batches):
+        tb = {k: mesh.take_block(torch.from_numpy(v), dim=nd)
+              for k, v in b.items()}
+        collectives.reset_counts()
+        states[0], m = rnds[0](states[0], tb)
+        checks[f"tel_counts_{r}"] = collectives.counts()
+        states[1], _ = rnds[1](states[1], tb)
+        checks[f"tel_{r}"] = {k: float(v) for k, v in m.items()
+                              if k.startswith("telemetry/")}
+        same = same and all(
+            torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+            for x, y in zip(leaves(states[0]), leaves(states[1])))
+    checks["tel_traj_bit_identical"] = same
+
+
+def _probe(mesh, checks):
+    """One autotune probe point measured on the ranks: its record."""
+    from repro_torch.autotune import ProbePoint, measure_point
+    rec = measure_point(ProbePoint("global", TOPO, "topk:0.25", 4, (16, 8)),
+                        2, device="cpu", mesh=mesh)
+    checks["probe"] = rec
+
+
 def _ab(mesh, checks):
     """The A/B reduction of repro_torch/testing.py (24 leaves of 96 x 64,
     one bucket each), serial and pipelined: its collectives."""
@@ -257,15 +318,17 @@ def _loader(mesh, topo, checks):
                                     and torch.equal(by_specs["x"], want))
 
 
-def run(rank, world, name, out_dir, p_np, batches):
+def run(rank, world, name, out_dir, p_np, batches, tel_batches):
     torch.use_deterministic_algorithms(True)
     mesh = world_rank_mesh(MESHES[name], rank)
     topo = HierTopology(*TOPO)
     out, checks = {}, {}
     _reductions(name, mesh, topo, out, checks, out_dir)
     _round(name, mesh, topo, p_np, batches, out, checks, out_dir)
+    _telemetry(name, mesh, topo, p_np, tel_batches, checks)
     _loader(mesh, topo, checks)
     _ab(mesh, checks)
+    _probe(mesh, checks)
     with open(os.path.join(out_dir, f"{name}-{rank}.json"), "w") as f:
         json.dump(checks, f)
     if rank == 0:

@@ -28,7 +28,21 @@ Limits, set from their reasoning before the first run:
   * qint8 wire bytes and top-k supports: equal (data movement);
   * rounds: ``tests/test_torch_hier.py``'s limits (1e-5 relative plus
     1e-6 absolute), top-k supports equal at every fire;
-  * all-true masks and checkpoints: bit for bit.
+  * all-true masks and checkpoints: bit for bit;
+  * telemetry (``TEL_LIMIT``): each statistic is a sum of K non-negative
+    fp32 terms (K = P x N for the divergences, the codec error's two
+    sums and the gradient norms, with N the elements of one learner's
+    parameters; the EF elements for ``ef_mass``), which the ranks add in
+    another order than one process (the level means over the ranks, the
+    per-learner totals in a grid).  Two orders of such a sum are each
+    within (K - 1) 2^-24 of the exact sum, so within 2 (K - 1) 2^-24 of
+    each other, relative; the codec error is a ratio of two such sums and
+    the gradient-norm variance a mean of squared differences of them, so
+    each takes twice that.  The rounds' inputs differ only through the
+    cross-rank means (the limit above), whose reordering enters those
+    terms at the same 2^-24 scale.  A statistic over the rank's block
+    alone (the fault this replaced) and an EF mass that sums flat rows
+    over the fsdp ranks must fail it.
 """
 import functools
 import json
@@ -74,6 +88,15 @@ def _mixture(rng, shape_lead, n_classes=4, in_dim=16):
 
 
 @functools.lru_cache(maxsize=None)
+def _tel_inputs():
+    """The telemetry rounds' batches (TEL_PLAN's step dims), numpy."""
+    h = JHier(plan=W.TEL_PLAN)
+    return [_mixture(np.random.default_rng(20 + r),
+                     h.batch_dims + W.TOPO + (W.B,))
+            for r in range(W.ROUNDS)]
+
+
+@functools.lru_cache(maxsize=None)
 def _round_inputs(world):
     h = JHier(plan=W.ROUND_PLANS[world])
     p = jax.tree.map(np.asarray, jax.jit(
@@ -92,7 +115,8 @@ def worlds(tmp_path_factory):
     out = {}
     for name, n in WORLD_SIZES.items():
         p, batches = _round_inputs(name)
-        spawn_world(W.run, n, name, d, p, batches, timeout=300)
+        spawn_world(W.run, n, name, d, p, batches, _tel_inputs(),
+                    timeout=300)
         checks = []
         for r in range(n):
             with open(os.path.join(d, f"{name}-{r}.json")) as f:
@@ -429,3 +453,167 @@ def test_level_process_groups(worlds, world, sizes):
     peers, not 8."""
     for c in worlds[world][1]:
         assert c["level_group_sizes"] == sizes
+
+
+# --------------------------------------------------------------------- #
+# telemetry on a mesh of ranks
+
+U = 2.0 ** -24
+
+
+def _n_elements(tree, stacked=True):
+    """The elements of one learner's parameters."""
+    return sum(int(np.prod(np.shape(v)[3 if stacked else 0:]))
+               for v in jax.tree.leaves(tree))
+
+
+def _tel_limit(key, want, n_el):
+    """TEL_LIMIT for one statistic (see the module docstring)."""
+    k = (n_el if key.startswith("telemetry/ef_mass") else
+         int(np.prod(W.TOPO)) * n_el)
+    factor = 2 if ("codec_err" in key or "grad_norm_var" in key) else 1
+    return factor * 2 * (k - 1) * U * abs(want)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_process_telemetry(world):
+    """The port's telemetry rounds of TEL_PLAN in one process on the whole
+    grid (world b's shard-aware layout on an unbound mesh), from the same
+    init and batches: the ``telemetry/*`` values per round."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch import optim as toptim
+    from repro_torch.configs.base import HierAvgParams
+    from repro_torch.core import hier_avg as th
+    from repro_torch.core.topology import HierTopology
+    from repro_torch.models import resnet as tres
+    from repro_torch.parallel.sharding import RankMesh, shard_plan
+    p, _ = _round_inputs(world)
+    sp = (shard_plan(RankMesh(W.MESHES[world], HIER))
+          if W.MESHES[world][3] > 1 else None)
+    h = HierAvgParams(plan=W.TEL_PLAN)
+    opt = toptim.sgd(0.1, momentum=0.9)
+    plan = th.resolve_plan(h, None, None, shards=sp)
+    st = th.init_state(HierTopology(*W.TOPO),
+                       lambda _: convert.tree_from_numpy(p, device="cpu"),
+                       opt, None, plan=plan, shards=sp, device="cpu")
+    rnd = th.make_hier_round(tres.mlp_cls_loss, opt, h, shards=sp,
+                             telemetry=True)
+    out = []
+    for b in _tel_inputs():
+        st, m = rnd(st, {k: torch.from_numpy(v) for k, v in b.items()})
+        out.append({k: float(v) for k, v in m.items()
+                    if k.startswith("telemetry/")})
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_telemetry():
+    """The reference's telemetry rounds of TEL_PLAN, replicated, jitted."""
+    p, _ = _round_inputs("a")
+    h = JHier(plan=W.TEL_PLAN)
+    opt = joptim.sgd(0.1, momentum=0.9)
+    st = jh.init_state(JTopo(*W.TOPO), lambda k: jax.tree.map(jnp.asarray, p),
+                       opt, jax.random.PRNGKey(0), plan=h.resolved_plan)
+    rnd = jax.jit(jh.make_hier_round(jres.mlp_cls_loss, opt, h,
+                                     telemetry=True))
+    out = []
+    for b in _tel_inputs():
+        st, m = rnd(st, jax.tree.map(jnp.asarray, b))
+        out.append({k: float(v) for k, v in m.items()
+                    if k.startswith("telemetry/")})
+    return out
+
+
+@pytest.mark.parametrize("world", ["a", "b", "c"])
+def test_telemetry_on_ranks_matches_one_process(worlds, world):
+    """Every ``telemetry/*`` key of the rounds on the ranks equals the
+    one-process value within TEL_LIMIT and is the same on every rank; on
+    worlds a and c (fsdp 1) the reference's too, and a statistic is zero
+    on the ranks exactly where the reference's is (world a: one learner a
+    rank, where a block-only divergence would read 0)."""
+    _, checks = worlds[world]
+    n_el = _n_elements(_round_inputs(world)[0], stacked=False)
+    one = _one_process_telemetry(world)
+    for r in range(W.ROUNDS):
+        got = checks[0][f"tel_{r}"]
+        assert sorted(got) == sorted(one[r])
+        for c in checks[1:]:
+            assert c[f"tel_{r}"] == got
+        for k, want in one[r].items():
+            assert abs(got[k] - want) <= _tel_limit(k, want, n_el), (
+                r, k, got[k], want)
+        if world != "b":
+            ref = _ref_telemetry()[r]
+            assert sorted(ref) == sorted(got)
+            for k, want in ref.items():
+                assert abs(got[k] - want) <= _tel_limit(k, want, n_el), (
+                    r, k, got[k], want)
+                assert (got[k] == 0.0) == (want == 0.0), (r, k)
+    if world == "a":
+        assert got["telemetry/div_pre/local"] > 0.0
+        assert got["telemetry/grad_norm_var/local"] > 0.0
+
+
+@pytest.mark.parametrize("world", ["a", "b", "c"])
+def test_telemetry_on_ranks_keeps_the_trajectory(worlds, world):
+    """Telemetry on a mesh of ranks is a pure observer: the rounds with it
+    on are bit for bit those with it off on every rank (the telemetry-off
+    collective counts are the ones the count tests above hold)."""
+    for c in worlds[world][1]:
+        assert c["tel_traj_bit_identical"]
+        assert sum(c["tel_counts_0"].values()) > sum(
+            c["round_counts_0"].values()) or world == "b"
+
+
+@pytest.mark.parametrize("world", ["a", "b", "c"])
+def test_telemetry_statistics_across_ranks_and_controls(worlds, world):
+    """The divergence of distinct learners over the whole grid, and the
+    top-k EF mass of the reduction cases, across ranks against one process
+    on the same numbers (the gathered EF state: world b's codec view holds
+    each learner's two shard rows once).  Controls that must fail
+    TEL_LIMIT: the rank's block alone, and (world b) an EF mass that sums
+    the flat bucket's rows, whole on both fsdp ranks, over fsdp too."""
+    import torch
+
+    from repro_torch.telemetry import gradstats as tgs
+    npz, checks = worlds[world]
+    p_np, _ = W.reduction_inputs()
+    n_el = _n_elements(p_np)
+    want = float(tgs.group_divergence(
+        {k: torch.from_numpy(v) for k, v in p_np.items()}, (0, 1, 2)))
+    lim = _tel_limit("telemetry/div_pre", want, n_el)
+    ef = [npz[k] for k in sorted(npz) if k.startswith("topk_bucketed/err/")]
+    ef_want = float(tgs.ef_mass([torch.from_numpy(e) for e in ef]))
+    ef_lim = _tel_limit("telemetry/ef_mass", ef_want,
+                        sum(e.size for e in ef))
+    assert ef_want > 0.0
+    for c in checks:
+        assert abs(c["div_mesh"] - want) <= lim
+        assert abs(c["div_block"] - want) > lim
+        assert abs(c["ef_mass_mesh"] - ef_want) <= ef_lim
+        assert abs(c["ef_mass_block"] - ef_want) > ef_lim
+        if world == "b":
+            assert abs(c["ef_mass_all_rows"] - ef_want) > ef_lim
+
+
+@pytest.mark.parametrize("world", ["a", "b", "c"])
+def test_probe_point_on_ranks(worlds, world):
+    """``measure_point(mesh=)``: the point runs on the ranks (each
+    execution from a barrier, timed as the slowest rank's), so every rank
+    records the same times, and every other field is the one-process
+    record's."""
+    from repro_torch.autotune import ProbePoint, measure_point
+    recs = [c["probe"] for c in worlds[world][1]]
+    want = measure_point(ProbePoint("global", W.TOPO, "topk:0.25", 4,
+                                    (16, 8)), 2, device="cpu")
+    want = json.loads(json.dumps(want))
+    for rec in recs:
+        assert rec["min_us"] > 0.0
+        for k in ("min_us", "warm_us", "compile_s"):
+            assert rec[k] == recs[0][k]
+        assert {k: v for k, v in rec.items()
+                if k not in ("min_us", "warm_us", "compile_s")} == \
+            {k: v for k, v in want.items()
+             if k not in ("min_us", "warm_us", "compile_s")}

@@ -377,23 +377,36 @@ def test_train_cli_runs_moe_and_vlm_on_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--autotune", "x"], "item 8"), (["--fsdp", "2"], "torchrun")])
+    (["--autotune", "no-such-calibration.json"],
+     "no-such-calibration.json"), (["--fsdp", "2"], "torchrun")])
 def test_train_cli_refuses_unported_flags(flag, item, monkeypatch):
-    """``--autotune`` is still refused (item 8); ``--fsdp 2`` is ported and
-    fails only without a process group, naming torchrun."""
+    """Both flags are ported and refuse only what they cannot run:
+    ``--autotune`` a calibration artifact that does not exist (naming it;
+    tests/test_torch_autotune.py trains with one), ``--fsdp 2`` a run
+    without a process group (naming torchrun)."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    err = NotImplementedError if item == "item 8" else RuntimeError
+    err = FileNotFoundError if "autotune" in flag[0] else RuntimeError
     with pytest.raises(err, match=item):
         ttrain.main(["--arch", "rwkv6-1.6b", "--device", "cpu", *flag])
 
 
 def test_train_cli_refuses_telemetry_under_torchrun(monkeypatch):
-    """``--telemetry`` under torchrun is refused before the world is
-    joined: its statistics need the level groups' means across ranks
-    (item 8)."""
+    """``--telemetry`` under torchrun is no longer refused: the launcher
+    goes on to join the world (here a stand-in that stops it), and the
+    statistics are taken across the ranks (tests/test_torch_distributed.py
+    holds them)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "0")
-    with pytest.raises(NotImplementedError, match="item 8"):
+
+    class Joined(Exception):
+        pass
+
+    def join(args, topo, device):
+        assert args.telemetry
+        raise Joined
+
+    monkeypatch.setattr(ttrain, "_join_world", join)
+    with pytest.raises(Joined):
         ttrain.main(["--arch", "rwkv6-1.6b", "--device", "cpu",
                      "--telemetry"])
 

@@ -48,7 +48,10 @@ def test_importing_every_module_leaves_jax_out():
               "data.loader", "launch.train", "models.moe",
               "models.attention", "models.common", "models.transformer",
               "parallel.sharding", "parallel.collectives", "launch.mesh",
-              "testing", "checkpoint.checkpoint", "data.loader"):
+              "testing", "checkpoint.checkpoint", "data.loader",
+              "autotune", "autotune.calibrate", "autotune.probe",
+              "autotune.search", "autotune.controller",
+              "launch.analytic"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

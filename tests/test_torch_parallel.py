@@ -455,18 +455,49 @@ def test_a_bound_mesh_is_passed_explicitly():
 
 
 def test_telemetry_is_refused_on_a_bound_mesh():
-    """Telemetry's statistics are means over a level's groups, which a
-    rank's block does not hold: a round on a bound mesh refuses
-    ``telemetry=`` (ROADMAP item 8), and one on the whole grid in one
-    process (an unbound mesh) takes it."""
+    """No longer refused: a round on a bound mesh takes ``telemetry=``
+    (its statistics are taken across the ranks; the gloo worlds of
+    tests/test_torch_distributed.py hold them), and on a world of one rank
+    (nothing spread) its statistics are the one-process round's: the
+    divergences, gradient norms and EF mass bit for bit (the same sums in
+    the same order), the codec error within 2 (K - 1) 2^-24 (its sum runs
+    per learner first)."""
+    import numpy as np
+    import torch
+
     from repro_torch import optim as toptim
     from repro_torch.configs.base import HierAvgParams
     from repro_torch.core import hier_avg as th
-    h = HierAvgParams(plan="local@2/global@4")
+    from repro_torch.configs.resnet18_cifar import MLPConfig
+    from repro_torch.models.resnet import mlp_cls_init
+    h = HierAvgParams(plan="local@2/global@4:topk:0.25")
     opt = toptim.sgd(0.1)
-    bound = tsh.RankMesh((1, 2, 2, 1, 1), HIER, rank=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        th.make_hier_round(tres.mlp_cls_loss, opt, h, mesh=bound,
-                           telemetry=True)
-    assert th.make_hier_round(tres.mlp_cls_loss, opt, h, telemetry=True,
-                              mesh=tsh.RankMesh((1, 2, 2, 1, 1), HIER))
+    assert th.make_hier_round(
+        tres.mlp_cls_loss, opt, h, telemetry=True,
+        mesh=tsh.RankMesh((1, 2, 2, 1, 1), HIER, rank=1))
+    topo = HierTopology(1, 2, 2)
+    cfg = MLPConfig(in_dim=16, hidden=(32,), n_classes=4)
+    init = lambda g: mlp_cls_init(g, cfg, device="cpu")  # noqa: E731
+    g = torch.Generator().manual_seed(3)
+    batch = {"x": torch.randn(h.batch_dims + topo.shape + (4, 16),
+                              generator=g),
+             "y": torch.randint(0, 4, h.batch_dims + topo.shape + (4,),
+                                generator=g).int()}
+    out = []
+    for mesh in (None, tsh.RankMesh((1, 1, 1, 1, 1), HIER, rank=0)):
+        st = th.init_state(topo, init, opt, torch.Generator().manual_seed(0),
+                           plan=h.resolved_plan, device="cpu")
+        _, m = th.make_hier_round(tres.mlp_cls_loss, opt, h, mesh=mesh,
+                                  telemetry=True)(st, batch)
+        out.append({k: float(v) for k, v in m.items()
+                    if k.startswith("telemetry/")})
+    one, ranked = out
+    n_el = 16 * 32 + 32 + 32 * 4 + 4
+    assert sorted(one) == sorted(ranked)
+    for k, v in one.items():
+        if "codec_err" in k:
+            assert abs(ranked[k] - v) <= 4 * (4 * n_el - 1) * 2.0 ** -24 \
+                * abs(v), k
+        else:
+            assert ranked[k] == v, k
+    assert np.isfinite(list(one.values())).all()
