@@ -12,7 +12,10 @@ attention and top-k kernels; then serving of every trained family: the
 dense wave engine on StarCoder2-15B (its prefill through the attention
 kernel), RWKV-6 1.6B (its prefill through the WKV kernel, whose final
 state the decode carries on) and DeepSeek-V2-Lite's MLA and MoE on the
-paged engine; then Hier-AVG on gloo ranks sharing the card, with the
+paged engine; the Hymba hybrid (Mamba scan + sliding-window attention)
+and the SeamlessM4T-style encoder-decoder, each trained under Hier-AVG
+through the attention and top-k kernels and served; then Hier-AVG on
+gloo ranks sharing the card, with the
 telemetry statistics taken across them, the autotune loop (the probe
 through the top-k, qint8 and QR kernels, the fit, the bill of the
 measured fires, --autotune) and the launcher under torchrun.
@@ -144,7 +147,8 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               must fail; a rerun gives the same bits; times against the
               bound, the plain versions, SDPA and the backward of one SDPA
               call
-  12. rwkv    rwkv6-1.6b at full width, 4 of 24 layers, random init from
+  12. rwkv    rwkv6-1.6b at full width, RWKV_TRAIN_LAYERS (2) of 24
+              layers, random init from
               seed 0, P = 4 as (1, 2, 2), plan local@2/global@8:topk:0.05
               per leaf, sgd(0.1), 2 x 512 tokens of a 512-token Markov
               chain per learner per step, 3 rounds: losses, eval loss
@@ -188,7 +192,7 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               on the card (reduced deepseek-v2-lite)
   16. vlm     qwen2-vl-2b at published widths (d 1536, 12/2 heads of 128,
               d_ff 8960, tied vocab 151,936, M-RoPE (16, 24, 24)), depth
-              28 -> VLM_LAYERS (4), bf16 params, remat, P = 4, plan
+              28 -> VLM_LAYERS (2), bf16 params, remat, P = 4, plan
               local@2/global@8:topk:0.05 per leaf, 1 x 1024 tokens per
               learner per step (256 stub patch embeddings + 768 Markov
               tokens), 3 rounds: exact launches (attention forward twice
@@ -200,9 +204,10 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               peaks; a profiled round; the bf16 attention kernels at the
               trainer's shape [4, 1024, 12/2, 128] against plain, SDPA
               and the bound
-  17. rwkv serve  rwkv6-1.6b at full width and depth, bf16, ServeEngine:
+  17. rwkv serve  rwkv6-1.6b at full width, depth 24 ->
+              RWKV_SERVE_LAYERS (12), bf16, ServeEngine:
               8 requests of 1024 tokens in two waves of 4, 64 new tokens
-              each; exactly 48 WKV forwards (24 layers x 2 prefills, s0 the
+              each; exactly 24 WKV forwards (12 layers x 2 prefills, s0 the
               cache's zeros, sT kept for the decode); the prefill's states
               and logits kernel vs plain at fp32 compute within
               RWKV_PLAIN_TOL (control: the bonus u dropped; at bf16,
@@ -212,8 +217,9 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               token); tokens/s, decode step, prefill, peak; the WKV forward
               at [4, 1024, 32, 64] against plain and the bound, with and
               without its checkpoints
-  18. mla/moe serve  deepseek-v2-lite-16b at full width and depth (one
-              dense layer, 26 MoE), bf16, PagedServeEngine (8 slots, pages
+  18. mla/moe serve  deepseek-v2-lite-16b at full width, depth 27 ->
+              MLA_SERVE_LAYERS (9: one dense layer, 8 MoE), bf16,
+              PagedServeEngine (8 slots, pages
               of 16, chunks of 256): 12 requests of 256-2048 tokens,
               budgets 32-64, a slot refilled; tokens/s, decode step,
               peak, one profiled step by class (latent gather, absorbed
@@ -268,6 +274,38 @@ Phases (each prints one line of numbers; any failure exits non-zero):
               mesh, the ranks' plan check and the per-round all-reduce of
               the metrics run on NCCL; NCCL's multi-rank collectives need
               a machine with several cards
+  22. hymba   hymba-1.5b at published widths (d 1600, 25/5 heads of 64,
+              d_ff 5504, SSM d_inner 3200 state 16, window 1024, vocab
+              32001), depth 32 -> HYMBA_LAYERS (2), fp32, P = 4 as
+              (1, 2, 2), plan local@2/global@8:topk:0.05 per leaf, 1 x
+              2048 Markov tokens per learner per step (the window masks,
+              the scan runs 8 chunks of 256 under remat), 1 round, the
+              eval loss falling from the init's: exact launches
+              (attention forward per layer and step plus evals, backward
+              per layer and step, top-k per leaf per global fire); 1
+              round kernel vs plain (attention and top-k) at phases
+              12-13's fp32 limits, a control with the labels shifted by
+              one position outside both, the control's round profiled
+              by class (attention, the scan's addcmul steps,
+              GEMMs, elementwise, idle); the SSM heads' share of the round
+              (mamba_apply timed alone under vmap(grad)); the attention
+              kernels at the training
+              shape [4, 2048, 25/5, 64] window 1024 against plain (a
+              control one key short of the window), SDPA with a band mask
+              and the bound; ServeEngine (fp32): 4 x 2048 prompts, 32
+              greedy tokens through the rolling window and the SSM state,
+              2 prefill forwards, tokens equal with impl="plain"
+  23. seamless  seamless-m4t-large-v2 at published widths (d 1024, 16/16
+              heads of 64, d_ff 8192 relu, vocab 256206, 1024 stub
+              frames), depth 24 + 24 -> 2 + 2, bf16 params, remat, as 22
+              with 1 x 512 tokens per learner per step, 3 rounds and
+              the bf16 limits SEAMLESS_LOSS_REL / SEAMLESS_UPDATE_L2
+              (tighter than phase 16's, which the shifted-label control
+              passes here); the decoder's causal self-attention
+              takes the kernel (the encoder's and the cross-attention are
+              non-causal: plain, as in the reference), at [4, 512, 16/16,
+              64] bf16; ServeEngine (fp32) with the stub frames: 4 x 512
+              prompts, 32 greedy tokens, tokens equal with impl="plain"
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -364,7 +402,7 @@ QR_ORTH_TOL = 1e-4
 QR_EMU_ULPS = 0
 # phase 8's per-leaf PowerSGD fires at rank 2, (batch, a, r) a compressible
 # leaf: ResNet-18 (16 learners; the HWIO convs give a = 3) and rwkv6-1.6b
-# at phase 12's size (4 learners, 4 layers)
+# at RWKV_LAYERS (4 learners, 4 layers)
 RESNET_QR_FIRE = ((16, 3, 2),) * 17 + ((16, 512, 2),)
 RWKV_QR_FIRE = ((4, 65536, 2), (4, 2048, 2)) + ((4, 4, 2),) * 22
 # phase 9, plan B (PowerSGD), kernel against plain QR after 2 rounds:
@@ -454,6 +492,10 @@ LM_FULL_DEPTH = {"rwkv6-1.6b": 24, "starcoder2-15b": 40,
 # SGD step (PERF.md, PR 14), and starcoder2 at 2 layers would hold 66 GB in
 # params, grads and new params alone.  Both phases print their peak.
 RWKV_LAYERS = 4
+# phase 12 trains RWKV_TRAIN_LAYERS of them (it trained RWKV_LAYERS
+# before phases 22 and 23 took the time); phases 6 and 8 keep their fires
+# at RWKV_LAYERS, the sizes of the kernel table's rows
+RWKV_TRAIN_LAYERS = 2
 DENSE_LAYERS = 1
 LM_RWKV_PLAN = "local@2/global@8:topk:0.05"
 # kernel against plain, 1 round from one state copy: the round's mean
@@ -488,9 +530,10 @@ VLM_PLAN = "local@2/global@8:topk:0.05"
 # 4 layers (420,558,336 params) the card read a 41.48 GiB peak, 26.5 B a
 # param a learner, and 10 layers read 69.10 GiB; full depth would hold
 # ~164 GB.  The serving phases (4c, 5b, 17, 18) take the ~100 s that 10
-# layers took beyond 4 (phase 16: 151-180 s at 10), so the script stays
-# within 1000 s: 4 layers, launch counts exact for that depth
-VLM_LAYERS = 4
+# layers took beyond 4 (phase 16: 151-180 s at 10), and phases 22 and 23
+# ~150 s more, so the script stays within its time: 2 layers (4 before
+# them), launch counts exact for that depth
+VLM_LAYERS = 2
 # phase 16, kernel against plain in bf16, 1 round from one state copy:
 # the round's mean loss within BF16_LOSS_REL relative (a bf16 logit is
 # rounded to 2^-9 of itself and the attention's P and output again), and
@@ -567,6 +610,12 @@ RWKV_PLAIN_TOL = RWKV_CONT_TOL = 1e-4
 # the 1025 keys at a rope position 16 early, its latent over a prompt
 # position's), 1.6% of the keys, four times phase 5's one page of ~4100
 MOE_REQS, MOE_CMP_PLEN, MOE_CMP_NEW = 12, 1024, 32
+# phases 17 and 18 serve at full width, cut in depth (from 24 and 27
+# layers) so that phases 22 and 23 fit the script's time: their
+# decode steps are host-bound, about linear in the layers; every limit
+# there is one that fewer layers only loosen (fp32 differences summed over
+# fewer layers), each control a planted fault of every layer
+RWKV_SERVE_LAYERS, MLA_SERVE_LAYERS = 12, 9
 MOE_DENSE_TOL = 2e-2
 
 
@@ -1735,7 +1784,7 @@ def trace_kernels(prof, path):
     (name, start us, duration us, stream) each; and the host's CUDA
     runtime and driver calls, {name: summed duration us}."""
     prof.export_chrome_trace(path)
-    with gzip.open(path, "rt") as f:
+    with (gzip.open if path.endswith(".gz") else open)(path, "rt") as f:
         events = json.load(f).get("traceEvents", [])
     api = {}
     for e in events:
@@ -1968,31 +2017,38 @@ def state_pairs(ka, kb):
     return pairs
 
 
-def profile_round(torch, rnd, state, batch, label, classes, ops=False):
+def profile_round(torch, rnd, state, batch, label, classes, ops=False,
+                  host_ops=True, wall_ms=None, keep=False):
     """Device time of one round by kernel class (torch.profiler's Chrome
     trace), and the idle share against an unprofiled round's wall; with
     ``ops``, the PyTorch operators whose kernels took the most time
-    (``key_averages``, which takes seconds on a large trace)."""
+    (``key_averages``, which takes seconds on a large trace).  No
+    warm-up round: every caller's earlier rounds warmed the card.
+    ``host_ops`` False: the trace records the device and the CUDA
+    API only, not each operator on the host (a round of ~10^5 eager calls
+    exports in a fraction of the time); ``wall_ms``: the unprofiled wall
+    of the same round, measured by the caller (no timed round here);
+    ``keep``: return (kernels, the profiled round's (state, metrics))."""
     from torch.profiler import ProfilerActivity, profile
 
-    rnd(state, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rnd(state, batch)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if wall_ms is None:
         t0 = time.perf_counter()
         rnd(state, batch)
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_us = wall_ms * 1e3
+    with profile(activities=[ProfilerActivity.CPU] * host_ops
+                 + [ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = rnd(state, batch)
+        torch.cuda.synchronize()
         prof_wall_us = (time.perf_counter() - t0) * 1e6
     with tempfile.TemporaryDirectory() as tmp:
-        kernels, api = trace_kernels(prof, os.path.join(tmp, "round.json.gz"))
+        kernels, api = trace_kernels(prof, os.path.join(tmp, "round.json"))
     if not kernels:
         print(f"{label} profile: the profiler saw no device time "
               f"(device breakdown not measured)")
-        return None
+        return (None, out) if keep else None
     busy = busy_us(kernels)
     by = by_class(kernels, classes)
     summed = sum(by.values())
@@ -2026,7 +2082,7 @@ def profile_round(torch, rnd, state, batch, label, classes, ops=False):
     print(f"{label} host CUDA API (ms per profiled round): memory calls "
           f"{mem / 1e3:.3f}; top: " + " | ".join(
               f"{k} {v / 1e3:.3f}" for v, k in top_api))
-    return kernels
+    return (kernels, out) if keep else kernels
 
 
 def phase_train(torch):
@@ -3190,13 +3246,19 @@ def lm_setup(torch, arch, n_layers, seq, impl="auto", **opts):
     ``opts`` go to ``build`` (param_dtype, remat).  For the VLM, the
     stub's patch embeddings (``cfg.frontend_tokens`` of them, from the
     sampler's generator) and their M-RoPE positions go in front of
-    seq - frontend_tokens chain tokens."""
+    seq - frontend_tokens chain tokens; for the encoder-decoder (cut to
+    ``n_layers`` encoder and ``n_layers`` decoder layers) the stub's
+    ``cfg.frontend_tokens`` audio frames go beside seq chain tokens."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_markov_task, markov_lm_batch
     from repro_torch.models import build
-    from repro_torch.models.stubs import mrope_positions, vision_patch_embeds
+    from repro_torch.models.stubs import (audio_frame_embeds,
+                                          mrope_positions,
+                                          vision_patch_embeds)
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    if cfg.is_encoder_decoder:
+        cfg = dataclasses.replace(cfg, n_encoder_layers=n_layers)
     bundle = build(cfg, impl=impl, device="cuda", **opts)
     logits, floor = make_markov_task(LM_MARKOV_VOCAB, device="cuda")
     nv = cfg.frontend_tokens if cfg.family == "vlm" else 0
@@ -3208,6 +3270,9 @@ def lm_setup(torch, arch, n_layers, seq, impl="auto", **opts):
                                                          cfg.d_model)
             batch["positions"] = mrope_positions(n, nv, seq - nv,
                                                  device="cuda")
+        if cfg.is_encoder_decoder:
+            batch["frames"] = audio_frame_embeds(gen, n, cfg.frontend_tokens,
+                                                 cfg.d_model)
         return batch
 
     return cfg, bundle, sample, floor
@@ -3327,7 +3392,7 @@ def lm_phase(torch, *, label, arch, n_layers, hier, batch, seq, rounds,
 
     # kernel against plain: 1 round from one state copy, same batch
     rb = loader.next_round()
-    cpu_state = state_to(torch, state, "cpu")
+    cpu_state = comparison_copy(torch, state)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3403,13 +3468,14 @@ def phase_lm(torch):
     rwkv_hier = HierAvgParams(plan=LM_RWKV_PLAN, bucket_bytes=0)
     n_buckets, padded, per_leaf = padded_bucket_bytes(
         torch, dataclasses.replace(get_config("rwkv6-1.6b"),
-                                   n_layers=RWKV_LAYERS), 4)
+                                   n_layers=RWKV_TRAIN_LAYERS), 4)
     print(f"phase 12 padded buckets: default bucketing of rwkv6-1.6b at "
-          f"{RWKV_LAYERS} layers packs {n_buckets} uniform buckets, so the "
+          f"{RWKV_TRAIN_LAYERS} layers packs {n_buckets} uniform buckets, so the "
           f"top-k EF ref/err at 4 learners would take {padded} B against "
           f"{per_leaf} B per leaf (meta tensors; not run)")
     rwkv = lm_phase(torch, label="phase 12 train rwkv6-1.6b", arch="rwkv6-1.6b",
-                    n_layers=RWKV_LAYERS, hier=rwkv_hier, batch=2, seq=512,
+                    n_layers=RWKV_TRAIN_LAYERS, hier=rwkv_hier, batch=2,
+                    seq=512,
                     rounds=LM_ROUNDS, counters=counters,
                     check=check_rwkv_launches)
     dense = lm_phase(torch, label="phase 13 train starcoder2-15b",
@@ -3448,12 +3514,25 @@ def state_to(torch, state, device):
                     else x, state)
 
 
+def comparison_copy(torch, state):
+    """A copy of ``state`` that one_round starts each round from: on the
+    card where it fits beside the peak so far (the training's, since its
+    reset) with a tenth of the card to spare, else on the host (where
+    every round then moves the whole state to the card)."""
+    from repro_torch.tree import leaves
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(state)
+                 if isinstance(x, torch.Tensor))
+    total = torch.cuda.get_device_properties(0).total_memory
+    on_card = torch.cuda.max_memory_allocated() + nbytes < 0.9 * total
+    return state_to(torch, state, "cuda" if on_card else "cpu")
+
+
 def bf16_rounds(torch, label, bundle, hier, loader, eval_batch, counters,
-                rounds, floor):
+                rounds, floor, eval_first=False):
     """Train ``rounds`` rounds at P = 4 as (1, 2, 2), sgd(0.1), from seed
     0, the launch counts set to 0 just before and read just after; the
-    eval loss must fall.  Returns (state, the last round batch,
-    launches)."""
+    eval loss (after each round, and with ``eval_first`` of the init too)
+    must fall.  Returns (state, the last round batch, launches)."""
     from repro_torch.core.hier_avg import init_state, make_hier_round
     from repro_torch.core.topology import HierTopology, unstack_first
     from repro_torch.optim import sgd
@@ -3471,6 +3550,10 @@ def bf16_rounds(torch, label, bundle, hier, loader, eval_batch, counters,
     init_s = time.perf_counter() - t0
     zero_counts(counters)
     walls, losses, evals, aux = [], [], [], []
+    if eval_first:
+        with torch.no_grad():
+            evals.append(bundle.loss_fn(unstack_first(state.params),
+                                        eval_batch)[0].item())
     for _ in range(rounds):
         rb = loader.next_round()
         torch.cuda.synchronize()
@@ -3502,8 +3585,14 @@ def bf16_rounds(torch, label, bundle, hier, loader, eval_batch, counters,
 
 
 def one_round(torch, rnd, cpu_state, rb):
-    """One round from a CPU copy of a state, on the card: (the new state,
-    metrics, wall ms, peak GiB since the copy went up)."""
+    """One round from a copy of a state (on the host or the card,
+    comparison_copy), on the card: (the new state, metrics, wall ms, peak
+    GiB since the copy went up, less the bytes of a copy kept on the
+    card, so the peak reads as the round's alone)."""
+    from repro_torch.tree import leaves
+    resident = sum(x.numel() * x.element_size() for x in leaves(cpu_state)
+                   if isinstance(x, torch.Tensor) and x.is_cuda
+                   and x.is_floating_point())
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3513,7 +3602,8 @@ def one_round(torch, rnd, cpu_state, rb):
     st, m = rnd(st, rb)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    return st, m, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+    return (st, m, wall,
+            (torch.cuda.max_memory_allocated() - resident) / 2 ** 30)
 
 
 def remat_identity(torch, label, make_round, cpu_state, rb, on=None):
@@ -3628,7 +3718,7 @@ def phase_moe(torch):
                      if k != "step"))
 
     # remat off and on, one round from one state copy
-    cpu_state = state_to(torch, state, "cpu")
+    cpu_state = comparison_copy(torch, state)
     rb2 = loader.next_round()
 
     def make_round(remat):
@@ -3834,7 +3924,7 @@ def phase_vlm(torch):
     print(f"{label} parts: step_wall_ms={parts['step']:.3f} "
           + " ".join(f"{k}_fire_ms={v:.3f}" for k, v in parts.items()
                      if k != "step"))
-    cpu_state = state_to(torch, state, "cpu")
+    cpu_state = comparison_copy(torch, state)
     del state
     rb2 = loader.next_round()
 
@@ -4222,7 +4312,8 @@ def without_bonus(params):
 
 
 def phase_rwkv_serve(torch, np):
-    """Phase 17: rwkv6-1.6b at full width and depth, bf16 params, through
+    """Phase 17: rwkv6-1.6b at full width, RWKV_SERVE_LAYERS of its 24
+    layers, bf16 params, through
     ServeEngine: RWKV_REQS seeded requests of RWKV_PLEN tokens in waves of
     RWKV_SLOTS, RWKV_NEW new tokens each.  The prefill runs the WKV
     forward kernel once a layer from the cache's zero state and keeps its
@@ -4242,7 +4333,8 @@ def phase_rwkv_serve(torch, np):
     from repro_torch.serve import GenerationConfig, ServeEngine
     from repro_torch.tree import leaves
 
-    cfg = get_config("rwkv6-1.6b")
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"),
+                              n_layers=RWKV_SERVE_LAYERS)
     t0 = time.perf_counter()
     kern = build(cfg, param_dtype=torch.bfloat16, device="cuda")
     params = kern.init(torch.Generator(device="cuda").manual_seed(0))
@@ -4275,7 +4367,8 @@ def phase_rwkv_serve(torch, np):
             ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
             for r in res):
         fail(f"phase 17: {tokens} tokens or a token outside the vocab")
-    print(f"phase 17 serve rwkv6-1.6b full width and depth bf16 "
+    print(f"phase 17 serve rwkv6-1.6b full width, {cfg.n_layers} of 24 "
+          f"layers, bf16 "
           f"({n_params} params, init {init_s:.1f}s; ServeEngine, "
           f"{RWKV_REQS} x {RWKV_PLEN} tokens in {waves} waves of "
           f"{RWKV_SLOTS}, {RWKV_NEW} new): wall_s={wall:.3f} tokens_per_s="
@@ -4316,7 +4409,8 @@ def phase_rwkv_serve(torch, np):
     cont = max(rel_max(ln, lw), rwkv_states_rel(torch, cn, cw))
     cont_ctrl = max(rel_max(ls, lw), rwkv_states_rel(torch, cs, cw))
     del cw, cn, cs
-    print(f"phase 17 rwkv kernel vs plain prefill (one wave, 24 layers' "
+    print(f"phase 17 rwkv kernel vs plain prefill (one wave, "
+          f"{cfg.n_layers} layers' "
           f"states and the logits, max|diff|/max|ref|) at fp32 compute: "
           f"{sound:.4e} (limit {RWKV_PLAIN_TOL}), control bonus u dropped "
           f"{control:.4e} (must exceed); at bf16 compute, reported: "
@@ -4433,8 +4527,8 @@ def mla_moe_profile(torch, np, bundle, params, engine):
 
 
 def phase_mla_moe_serve(torch, np):
-    """Phase 18: deepseek-v2-lite-16b at full width and depth (one dense
-    layer, 26 MoE), bf16, through PagedServeEngine (8 slots, pages of 16,
+    """Phase 18: deepseek-v2-lite-16b at full width, MLA_SERVE_LAYERS of
+    its 27 layers (one dense, then MoE), bf16, through PagedServeEngine (8 slots, pages of 16,
     chunks of 256): MOE_REQS seeded requests of 256..2048 tokens, budgets
     32..64, at the config's capacity factor.  Then dense against paged at
     a dropless capacity factor, fp32 compute and fp32 caches over the
@@ -4448,7 +4542,8 @@ def phase_mla_moe_serve(torch, np):
     from repro_torch.serve import (GenerationConfig, PagedServeEngine,
                                    ServeEngine)
 
-    cfg = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=MLA_SERVE_LAYERS)
     t0 = time.perf_counter()
     bundle = build(cfg, param_dtype=torch.bfloat16,
                    cache_dtype=torch.bfloat16, device="cuda")
@@ -4484,7 +4579,8 @@ def phase_mla_moe_serve(torch, np):
     if s["refill_events"] < 1:
         fail("phase 18: no slot was refilled")
     tokens = sum(r.steps for r in res)
-    print(f"phase 18 serve deepseek-v2-lite-16b full width and depth bf16 "
+    print(f"phase 18 serve deepseek-v2-lite-16b full width, "
+          f"{cfg.n_layers} of 27 layers, bf16 "
           f"({n_params} params, init {init_s:.1f}s; PagedServeEngine, 8 "
           f"slots, pages of 16, chunks of 256, capacity factor "
           f"{cfg.capacity_factor}): requests={len(res)} tokens={tokens} "
@@ -4575,6 +4671,460 @@ def paged_one_page_short(torch, bundle, params, reqs, dtoks):
                                      torch.ones(b, dtype=torch.bool,
                                                 device="cuda"))
     return lg.float()
+
+
+# --------------------------------------------------------------------- #
+# phases 22 and 23: the Hymba hybrid and the encoder-decoder at published
+# widths, trained under Hier-AVG and served
+#
+# Phase 22, hymba-1.5b (d 1600, 25/5 heads of 64, d_ff 5504, d_inner 3200,
+# state 16, window 1024, vocab 32001), 2 of its 32 layers, fp32: the two
+# layers, the embedding and the head hold 200,302,400 params a learner, so
+# 4 learners keep 3.2 GB of params and at the per-leaf top-k fire ~32 B a
+# param a learner (params, EF ref and err, the delta, its decompressed and
+# averaged trees), ~26 GB: fp32 fits with room.  2048 tokens a learner:
+# the window masks keys, and the scan runs 8 chunks of 256 under remat.
+# Phase 23, seamless-m4t-large-v2 (d 1024, 16/16 heads of 64, d_ff 8192
+# relu, vocab 256206, 1024 stub frames), 2 + 2 of its 24 + 24 layers, 512
+# text tokens: 617,099,264 params a learner, 525 M of them the embedding
+# and the head; fp32 at ~32 B a param a learner would hold ~79 GB at the
+# fire, more than the card's 80 GB with the steps' logits, so bf16 params
+# with remat, as phase 16, at its measured 26.5 B (~61 GiB).
+HYMBA_ARCH, HYMBA_LAYERS, HYMBA_SEQ = "hymba-1.5b", 2, 2048
+SEAMLESS_ARCH, SEAMLESS_LAYERS, SEAMLESS_SEQ = ("seamless-m4t-large-v2", 2,
+                                                512)
+NEW_FAMILY_PLAN = "local@2/global@8:topk:0.05"
+# rounds trained (the eval loss must fall from the init's over them):
+# hymba's are the slow ones (the scan's step loop), 1; seamless 3, where
+# its round limits below were read
+HYMBA_ROUNDS, SEAMLESS_ROUNDS = 1, 3
+# phase 23's kernel-against-plain round, bf16 after 3 rounds: phase 16's
+# limits (BF16_LOSS_REL, BF16_UPDATE_L2) hold a round trained on labels
+# shifted by one position too, which read loss rel 1.16e-4 and update
+# 0.132 on an H100 there (5.4e-5 and 0.186 after 6 rounds), while the
+# sound round read 3.8e-7 and 0.0577 (2.6e-6 / 0.0678 after 2 rounds,
+# 2.5e-5 / 0.0745 after 6).  The loss averages ~2048 tokens a learner
+# step, so independent bf16 roundings of 2^-9 shrink to ~2^-9 / 45 there:
+# SEAMLESS_LOSS_REL 2^-15 (3.05e-5).  The update limit sits between the
+# sound readings and the shifted ones: SEAMLESS_UPDATE_L2 0.1.  Both were
+# set after those readings; the shifted-label control must fail both.
+SEAMLESS_LOSS_REL, SEAMLESS_UPDATE_L2 = 2.0 ** -15, 0.1
+# serving: one wave of SERVE_WAVE prompts, NEW_FAMILY_NEW greedy tokens
+# each, fp32 params and cache (kernel and plain attention then differ by
+# ~1e-6 of a logit, far inside the top-2 gaps of random weights, so the
+# greedy tokens must be identical)
+SERVE_WAVE, NEW_FAMILY_NEW = 4, 32
+HYMBA_SERVE_PLEN, SEAMLESS_SERVE_PLEN = 2048, 512
+# the round's device time by kernel class; the scan's forward steps are
+# its addcmul kernels (its backward's products are elementwise ones)
+NEW_FAMILY_CLASSES = (
+    ("flash_attention", ("attn_",)),
+    ("topk_compress", ("topk_",)),
+    ("scan_addcmul", ("addcmul",)),
+    ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "sm80_", "ampere",
+              "nvjet")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("reduce", ("reduce",)),
+    ("softmax", ("softmax",)),
+)
+
+
+def sdpa_call(torch, F, q, k, v, window):
+    """One scaled_dot_product_attention call computing the kernel's
+    function on [B, S, H, D] inputs: causal, or under a boolean band mask
+    of ``window`` keys (SDPA has no window flag), GQA."""
+    s = q.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if not window:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    i = torch.arange(s, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+
+def attn_at_shape(torch, label, b, s, hq, hkv, d, window, dtype, seed):
+    """The attention kernels at a model's training shape (the learners
+    folded into B): forward (o, lse) and backward (dq, dk, dv) held to
+    their plain versions at phase 11's limits, a control that must fail
+    them (the window, or causality, one key short: plain with window
+    ``(window or s) - 1``), and times against plain, one SDPA call (and
+    its backward) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_fwd)
+    q, k, v, do = attn_inputs(torch, b, s, hq, hkv, d, dtype, seed)
+    ok_, lk = flash_attention_fwd(q, k, v, window=window)
+    op, lp = kref.flash_attention_plain(q, k, v, window=window)
+    op = op.contiguous()
+    gk = flash_attention_backward(q, k, v, op, lp, do, window=window)
+    gp = kref.flash_attention_backward_plain(q, k, v, op, lp, do,
+                                             window=window)
+    torch.cuda.synchronize()
+    meas, worst = {}, 0.0
+    for name, a, bb in zip(("o", "lse", "dq", "dk", "dv"), (ok_, lk, *gk),
+                           (op, lp, *gp)):
+        err, meas[name] = hold(torch, f"{label} attention {name}", a, bb)
+        worst = max(worst, err)
+    short = (window or s) - 1
+    ob, lb = kref.flash_attention_plain(q, k, v, window=short)
+    gb = kref.flash_attention_backward_plain(q, k, v, ob, lb, do,
+                                             window=short)
+    ctrl = (control(torch, f"{label} o, window {short}", ob, op),
+            control(torch, f"{label} dk, window {short}", gb[1], gp[1]))
+    del ob, lb, gb, gk, gp
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    sdpa = sdpa_call(torch, F, q, k, v, window)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = sdpa_call(torch, F, qt.transpose(1, 2), kt.transpose(1, 2),
+                    vt.transpose(1, 2), window)()
+    dot = do.transpose(1, 2)
+    (fb, fby, _, fbasis), (bb_, bby, _, bbasis) = attn_bound(
+        b, s, hq, hkv, d, window, q.element_size())
+    t = dict(
+        ms=time_ms(torch, lambda: flash_attention_fwd(q, k, v,
+                                                      window=window),
+                   flush, 10),
+        plain_ms=time_ms(torch, lambda: kref.flash_attention_plain(
+            q, k, v, window=window), flush, 3),
+        library_ms=time_ms(torch, sdpa, flush, 10),
+        bound_ms=fb, bound_by=fby, max_abs_err=worst,
+        bwd_ms=time_ms(torch, lambda: flash_attention_backward(
+            q, k, v, op, lp, do, window=window), flush, 5),
+        bwd_plain_ms=time_ms(torch, lambda: kref.
+                             flash_attention_backward_plain(
+                                 q, k, v, op, lp, do, window=window),
+                             flush, 2),
+        bwd_library_ms=time_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), flush, 3),
+        bwd_bound_ms=bb_, bwd_bound_by=bby)
+    print(f"{label} attention at the training shape (B{b} S{s} Hq{hq} "
+          f"Hkv{hkv} D{d} window {window} {str(dtype)[6:]}, L2 flushed): "
+          f"kernel vs plain " + " ".join(f"{n}={m:.2e}"
+                                         for n, m in meas.items())
+          + f" (fp32: share of {KERN_REL_TOL} x max|plain|; bf16: share "
+          f"of the element's limit); control window {short}: o "
+          f"{ctrl[0]:.2e} dk {ctrl[1]:.2e} (must fail); fwd_ms="
+          f"{fmt_ms(t['ms'])} plain_ms={fmt_ms(t['plain_ms'])} sdpa_ms="
+          f"{fmt_ms(t['library_ms'])} bound_ms={fb:.4f} ({fby}, {fbasis}); "
+          f"bwd_ms={fmt_ms(t['bwd_ms'])} plain_ms="
+          f"{fmt_ms(t['bwd_plain_ms'])} sdpa_bwd_ms="
+          f"{fmt_ms(t['bwd_library_ms'])} bound_ms={bb_:.4f} ({bby}, "
+          f"{bbasis})")
+    del q, k, v, do, ok_, lk, op, lp, out, qt, kt, vt, flush
+    return t
+
+
+def new_family_launches(label, launches, cfg, hier, remat, rounds):
+    """Exact launch counts of ``rounds`` trained rounds and rounds + 1
+    evals (the init's, then each round's): the causal attention forward
+    once per layer per step (twice under remat) and per eval, its
+    backward once per layer per step, top-k once per leaf per global fire
+    in the reducer's grouped calls; no WKV."""
+    steps = hier.steps_per_round * rounds
+    sizes = lm_leaf_sizes(cfg)
+    want = {"flash_attention_forward": cfg.n_layers * ((1 + remat) * steps
+                                                       + rounds + 1),
+            "flash_attention_backward": cfg.n_layers * steps,
+            "topk_compress": len(sizes) * rounds,
+            "topk_compress_calls": len(topk_groups(sizes, 4)) * rounds,
+            "rwkv6_wkv_forward": 0, "rwkv6_wkv_backward": 0}
+    if launches != want:
+        fail(f"{label}: launches {launches} != {want} (layers x ({1 + remat}"
+             f" x steps + rounds + 1 evals), layers x steps, leaves and "
+             f"grouped calls x global fires)")
+
+
+def kernel_plain_control(torch, label, make_round, cpu_state, rb, bf16,
+                         profile):
+    """One round from one state copy with the kernels, with their plain
+    versions and, as the control, with the kernels on the labels shifted
+    by one position (phase 16's control: an off-by-one in the targets).
+    The control's round runs under the profiler (``profile``:
+    profile_round's keyword arguments): the same program and shapes as
+    the kernel's, on other labels, with the kernel round's unprofiled
+    wall as the idle share's reference.  fp32 (phases 12-13's limits):
+    the loss within LM_LOSS_TOL relative and params within LM_PARAM_TOL
+    of their leaf's max except LM_SWAP_FRAC of them; bf16: the loss
+    within SEAMLESS_LOSS_REL, the round's update within
+    SEAMLESS_UPDATE_L2 relative L2.  The control must fail both.
+    Returns the kernel round's wall ms."""
+    from repro_torch.tree import leaves
+    old = leaves(cpu_state.params)
+    news, losses, walls = {}, {}, {}
+    shifted = dict(rb, labels=rb["labels"].roll(1, dims=-1))
+    for tag, impl, batch in (("kernel", "auto", rb), ("plain", "plain", rb),
+                             ("control", "auto", shifted)):
+        if tag == "control":
+            st = state_to(torch, cpu_state, "cuda")
+            torch.cuda.synchronize()
+            _, (st, m) = profile_round(torch, make_round(impl), st, batch,
+                                       wall_ms=walls["kernel"], keep=True,
+                                       **profile)
+        else:
+            st, m, walls[tag], _ = one_round(torch, make_round(impl),
+                                             cpu_state, batch)
+        news[tag] = [p.cpu() for p in leaves(st.params)]
+        losses[tag] = m["loss"].item()
+        del st, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def rel(tag):
+        return abs(losses[tag] - losses["plain"]) / abs(losses["plain"])
+
+    if bf16:
+        lim_loss, lim_p = SEAMLESS_LOSS_REL, SEAMLESS_UPDATE_L2
+        dist = update_rel_l2(torch, news["kernel"], news["plain"], old)
+        ctrl = update_rel_l2(torch, news["control"], news["plain"], old)
+        p_ok, c_ok = dist <= lim_p, ctrl <= lim_p
+        words = (f"the round's update rel L2 {dist:.4f} (limit {lim_p}); "
+                 f"control update {ctrl:.4f}")
+    else:
+        lim_loss = LM_LOSS_TOL
+        worst, beyond, total = compare_params(torch, news["kernel"],
+                                              news["plain"])
+        _, c_beyond, _ = compare_params(torch, news["control"],
+                                        news["plain"])
+        p_ok = beyond <= LM_SWAP_FRAC * total
+        c_ok = c_beyond <= LM_SWAP_FRAC * total
+        words = (f"params max rel {worst:.3e}, {beyond} of {total} "
+                 f"coordinates beyond {LM_PARAM_TOL} of their leaf's max "
+                 f"(limit {LM_SWAP_FRAC} of them); control {c_beyond} "
+                 f"beyond")
+    del news
+    print(f"{label} kernel vs plain (attention and top-k): 1 round from one "
+          f"state copy: loss {losses['kernel']:.6f} vs {losses['plain']:.6f}"
+          f" (rel {rel('kernel'):.3e}, limit {lim_loss:.3e}); {words}; "
+          f"control, the labels shifted by one: loss rel "
+          f"{rel('control'):.3e} (must fail both); round_wall_ms kernel="
+          f"{walls['kernel']:.1f} plain={walls['plain']:.1f}")
+    if rel("kernel") > lim_loss or not p_ok:
+        fail(f"{label} kernel vs plain round outside its limits")
+    if rel("control") <= lim_loss or c_ok:
+        fail(f"{label}: the shifted-label control is within a limit")
+    return walls["kernel"]
+
+
+def ssm_head_ms(torch, state, cfg):
+    """Host wall (across a synchronize) of the first layer's SSM head,
+    mamba_apply, over the trainer's 4 learners at HYMBA_SEQ tokens each:
+    forward and backward under vmap(grad) (a training step's), and the
+    forward alone (an eval's)."""
+    from repro_torch.models import mamba
+    from repro_torch.tree import tree_map
+    p = tree_map(lambda a: a.reshape((4,) + a.shape[3:])[:, 0].detach(),
+                 state.params["layers"]["ssm"])
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((4, 1, HYMBA_SEQ, cfg.d_model), generator=g,
+                    device="cuda")
+    w = torch.randn((4, 1, HYMBA_SEQ, cfg.d_model), generator=g,
+                    device="cuda")
+
+    def head(p, x, w):
+        return (mamba.mamba_apply(p, x, state=cfg.ssm_state)[0] * w).sum()
+
+    step = torch.func.vmap(torch.func.grad(head))
+    fwd = torch.func.vmap(head)
+    with torch.no_grad():
+        fwd_ms = wall_ms(torch, lambda: fwd(p, x, w), 2)
+    return wall_ms(torch, lambda: step(p, x, w), 2), fwd_ms
+
+
+def serve_new_family(torch, np, label, cfg, plen, seed):
+    """``cfg`` (cut in depth) through ServeEngine with fp32 params and
+    cache: one wave of SERVE_WAVE seeded prompts of ``plen`` tokens (and,
+    for the encoder-decoder, the stub's frames), NEW_FAMILY_NEW greedy
+    tokens each.  The prefill launches one attention forward per
+    (decoder) layer; the greedy tokens with impl="plain" must be the
+    kernel's.  Returns the forward launches."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import build
+    from repro_torch.models.stubs import audio_frame_embeds
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    def bundle(impl):
+        return build(cfg, param_dtype=torch.float32,
+                     cache_dtype=torch.float32, impl=impl, device="cuda")
+
+    kern = bundle("auto")
+    params = kern.init(torch.Generator(device="cuda").manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, size=(SERVE_WAVE, plen)
+                           ).astype(np.int32)
+    extras = None
+    if cfg.is_encoder_decoder:
+        extras = {"frames": audio_frame_embeds(
+            torch.Generator(device="cuda").manual_seed(seed + 1), SERVE_WAVE,
+            cfg.frontend_tokens, cfg.d_model)}
+    prefill_ms, decode_ms = [], []
+    timed = dataclasses.replace(
+        kern, prefill=sync_timed(torch, kern.prefill, prefill_ms),
+        decode_step=sync_timed(torch, kern.decode_step, decode_ms))
+    gen = GenerationConfig(max_new_tokens=NEW_FAMILY_NEW)
+    max_len = plen + NEW_FAMILY_NEW
+    ServeEngine(kern, params, max_len=max_len, gen=GenerationConfig(
+        max_new_tokens=2)).generate(prompts[:, :64], extras)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    toks = ServeEngine(timed, params, max_len=max_len, gen=gen).generate(
+        prompts, extras)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention_fwd.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    plain = ServeEngine(bundle("plain"), params, max_len=max_len,
+                        gen=gen).generate(prompts, extras)
+    share, first = agreement(np, toks, plain)
+    n_tok = SERVE_WAVE * NEW_FAMILY_NEW
+    print(f"{label} serve (ServeEngine, fp32 params and cache, "
+          f"{SERVE_WAVE} x {plen} tokens"
+          + (f" + {cfg.frontend_tokens} stub frames" if extras else "")
+          + f", {NEW_FAMILY_NEW} new each, one wave): wall_s={wall:.3f} "
+          f"tokens_per_s={n_tok / wall:.2f} prefill_ms={prefill_ms[0]:.3f} "
+          f"decode_ms_median={statistics.median(decode_ms):.3f} "
+          f"decode_steps={len(decode_ms)} peak_mem_gib={peak:.2f} "
+          f"flash_attention_forward_launches={launches}; greedy tokens "
+          f"kernel vs plain equal {share:.4f}, first difference per "
+          f"request {first}")
+    if launches != cfg.n_layers:
+        fail(f"{label} serve: attention forward launches {launches} != "
+             f"{cfg.n_layers} layers x 1 prefill")
+    if not ((toks >= 0) & (toks < cfg.padded_vocab)).all():
+        fail(f"{label} serve: a token outside the (padded) vocab")
+    if share != 1.0:
+        fail(f"{label} serve: greedy tokens differ between impl kernel and "
+             f"plain (first difference per request {first})")
+    return launches
+
+
+def new_family_phase(torch, np, *, label, arch, n_layers, seq, bf16, rounds,
+                     seed):
+    """Train ``arch`` at published widths cut to ``n_layers`` (decoder and
+    encoder) with NEW_FAMILY_PLAN per leaf at P = 4 as (1, 2, 2), one
+    sequence a learner, ``rounds`` rounds from seed 0 with exact
+    launch counts; one round kernel vs plain with a shifted-label control;
+    a profiled round; the attention kernels at the training shape; then
+    serving.  Returns (launches, attention times, serve launches)."""
+    from repro_torch.configs.base import HierAvgParams
+    from repro_torch.core.hier_avg import make_hier_round
+    from repro_torch.data.loader import HierDataLoader
+    from repro_torch.optim import sgd
+
+    counters = lm_counters()
+    hier = HierAvgParams(plan=NEW_FAMILY_PLAN, bucket_bytes=0)
+    opts = dict(param_dtype=torch.bfloat16, remat=True) if bf16 else {}
+    cfg, bundle, sample, floor = lm_setup(torch, arch, n_layers, seq, **opts)
+    loader = HierDataLoader(sample, topo=_topo(), hier=hier,
+                            per_learner_batch=1, seed=0, device="cuda")
+    eval_batch = sample(torch.Generator(device="cuda").manual_seed(1), 4)
+    parts, t0 = {}, time.perf_counter()
+    state, rb, launches = bf16_rounds(
+        torch, label, bundle, hier, loader, eval_batch, counters, rounds,
+        floor, eval_first=True)
+    parts["train"] = time.perf_counter() - t0
+    new_family_launches(label, launches, cfg, hier, bf16, rounds)
+    ssm = None
+    if cfg.family == "hybrid":
+        ssm = ssm_head_ms(torch, state, cfg)
+    # the copy the comparison's rounds start from: hymba's state (params
+    # and EF ref/err, ~9.6 GB) fits on the card beside its ~49 GB peak,
+    # seamless's (~20 GB beside ~61 GB) goes to the host
+    cpu_state = comparison_copy(torch, state)
+    del state
+    rb2 = rb        # the last round's batch again: no new chains to draw
+
+    def make_round(impl="auto"):
+        _, b, _, _ = lm_setup(torch, arch, n_layers, seq, impl=impl, **opts)
+        plan = hier.resolved_plan if impl == "auto" \
+            else plain_plan(hier.resolved_plan)
+        return make_hier_round(b.loss_fn, sgd(0.1), hier, plan=plan)
+
+    # the control's round is the profiled one: the device time by class
+    # (the hybrid's trace holds ~1.5 x 10^5 kernels, the scan's step loop,
+    # so it records no host operators), the idle share against the kernel
+    # round's wall
+    t0 = time.perf_counter()
+    round_ms = kernel_plain_control(
+        torch, label, make_round, cpu_state, rb2, bf16,
+        profile=dict(label=f"{label} (one round: the control's)",
+                     classes=NEW_FAMILY_CLASSES, host_ops=bf16))
+    del cpu_state
+    parts["kernel_vs_plain_and_profile"] = time.perf_counter() - t0
+    if ssm is not None:
+        steps = hier.steps_per_round
+        share = (steps * ssm[0] + ssm[1]) * cfg.n_layers / round_ms
+        print(f"{label} SSM head (mamba_apply on the first layer's params, "
+              f"4 learners x {seq} tokens, host wall across a synchronize): "
+              f"step (vmap(grad)) {ssm[0]:.1f} ms, eval forward "
+              f"{ssm[1]:.1f} ms; a round's {steps} steps and 1 eval over "
+              f"{cfg.n_layers} layers: {share:.3f} of the kernel round's "
+              f"{round_ms:.1f} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    t0 = time.perf_counter()
+    attn = attn_at_shape(torch, label, 4, seq, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.resolved_head_dim, cfg.sliding_window, dtype,
+                         seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["attention"] = time.perf_counter() - t0
+    plen = HYMBA_SERVE_PLEN if cfg.family == "hybrid" \
+        else SEAMLESS_SERVE_PLEN
+    t0 = time.perf_counter()
+    served = serve_new_family(torch, np, label.replace(" train", ""), cfg,
+                              plen, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["serve"] = time.perf_counter() - t0
+    print(f"{label} seconds by part: " + " ".join(
+        f"{k}={v:.1f}" for k, v in parts.items()))
+    return launches, attn, served
+
+
+def phase_hymba(torch, np):
+    """Phase 22: hymba-1.5b at published widths, fp32, HYMBA_LAYERS of 32
+    layers, HYMBA_SEQ tokens a learner (the 1024 window masks; the scan
+    runs 8 chunks under remat)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(HYMBA_ARCH)
+    print(f"phase 22 train {HYMBA_ARCH}: depth {HYMBA_LAYERS} of "
+          f"{cfg.n_layers}, widths as published (d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, SSM d_inner {cfg.d_model * cfg.ssm_expand} "
+          f"state {cfg.ssm_state}, window {cfg.sliding_window}, vocab "
+          f"{cfg.vocab_size}), fp32, 1 x {HYMBA_SEQ} tokens per learner per "
+          f"step")
+    return new_family_phase(torch, np, label="phase 22 train hymba-1.5b",
+                            arch=HYMBA_ARCH, n_layers=HYMBA_LAYERS,
+                            seq=HYMBA_SEQ, bf16=False, rounds=HYMBA_ROUNDS,
+                            seed=220)
+
+
+def phase_seamless(torch, np):
+    """Phase 23: seamless-m4t-large-v2 at published widths, bf16 and
+    remat, SEAMLESS_LAYERS encoder and decoder layers of 24 + 24,
+    SEAMLESS_SEQ text tokens beside 1024 stub frames a learner."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SEAMLESS_ARCH)
+    print(f"phase 23 train {SEAMLESS_ARCH}: depth {SEAMLESS_LAYERS} + "
+          f"{SEAMLESS_LAYERS} of {cfg.n_encoder_layers} + {cfg.n_layers}, "
+          f"widths as published (d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff} {cfg.act}, vocab {cfg.vocab_size}), bf16 params, "
+          f"remat, 1 x {SEAMLESS_SEQ} tokens + {cfg.frontend_tokens} stub "
+          f"frames per learner per step")
+    return new_family_phase(torch, np,
+                            label="phase 23 train seamless-m4t-large-v2",
+                            arch=SEAMLESS_ARCH, n_layers=SEAMLESS_LAYERS,
+                            seq=SEAMLESS_SEQ, bf16=True,
+                            rounds=SEAMLESS_ROUNDS, seed=230)
 
 
 def np_isfinite(a) -> bool:
@@ -4680,6 +5230,14 @@ def main() -> None:
             {"7": phase7_fire, "9A": codec_fires["A"],
              "9B": codec_fires["B"]})
         timed("20", phase_torchrun, torch, tune_dir, artifact)
+    # the new families last, so that phases 19-21 run as they did before
+    # them (phase 21's fit reads host-bound reductions)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hymba = timed("22", phase_hymba, torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seamless = timed("23", phase_seamless, torch, np)
     print(f"phase seconds: {json.dumps(seconds)}")
     # phase 16's bf16 launches and times at qwen2-vl's shape and the
     # serving phases' (4c, 17) at their prefill shapes beside the attention
@@ -4705,6 +5263,21 @@ def main() -> None:
             "bf16_grouped_calls": vlm["topk_compress_calls"],
             "expert_fire_launches": moe_fire["topk_compress"],
             **{f"expert_leaf_{k}": v for k, v in expert_leaf.items()}}}
+
+    # phases 22 and 23: the attention kernels' launches, the serving
+    # prefills' and their times at hymba's and seamless's training shapes,
+    # and top-k's launches and calls
+    for tag, (lk, t, served) in (("hymba", hymba), ("seamless", seamless)):
+        fwd = later["flash_attention_forward"]
+        fwd[f"{tag}_launches"] = lk["flash_attention_forward"]
+        fwd[f"{tag}_serve_launches"] = served
+        fwd.update({f"{tag}_{k}": t[k] for k in serve_keys})
+        bwd = later["flash_attention_backward"]
+        bwd[f"{tag}_launches"] = lk["flash_attention_backward"]
+        bwd.update({f"{tag}_{k}": t[f"bwd_{k}"] for k in serve_keys})
+        later["topk_compress"].update({
+            f"{tag}_launches": lk["topk_compress"],
+            f"{tag}_grouped_calls": lk["topk_compress_calls"]})
 
     def entry(name, source, replaces, launches, numbers):
         # phase 14's launches beside each kernel its path runs, and

@@ -6,12 +6,15 @@ params)``) and returns a state dict for the port's serving model
 (``repro_torch/models/transformer.py::DecoderLM``).  Stacked ``[L, ...]``
 layer leaves are split per layer (``layers/attn/wq`` row ``i`` becomes
 ``layers.<i>.attn.wq``, ``layers_dense/ffn/w_gate`` row ``i``
-``layers_dense.<i>.ffn.w_gate``).  The RWKV-6 LM serves from its training
-tree: :func:`train_params_from_jax`.
+``layers_dense.<i>.ffn.w_gate``).  The RWKV-6 and Hymba LMs and the
+encoder-decoder serve from their training trees:
+:func:`train_params_from_jax`.
 
 ``train_params_from_jax(np_params, cfg)`` takes the same pytree as the
-LM training parameters of the port (dense GQA decoders and the RWKV-6
-LM), which keep the reference's stacked ``[L, ...]`` layer leaves.
+training parameters of the port's LMs and encoder-decoder, which keep the
+reference's stacked ``[L, ...]`` layer leaves (``enc_layers`` and
+``dec_layers`` for the encoder-decoder, each checked against its own
+depth).
 ``tree_from_numpy`` converts any nested dict/list tree of numpy arrays
 (the ResNet and MLP classifier params) leaf by leaf, keeping its
 structure; ``train_state_from_jax`` carries a whole Hier-AVG
@@ -31,9 +34,7 @@ from repro_torch.comm.lowrank import LowRankState
 from repro_torch.comm.sparse import EFState, rng_carry
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.hier_avg import TrainState
-from repro_torch.models.transformer import (_split_layers,
-                                            serve_unsupported_reason,
-                                            train_unsupported_reason)
+from repro_torch.models.transformer import _split_layers
 
 
 def _to_tensor(a: Any, device) -> torch.Tensor:
@@ -142,17 +143,33 @@ def _leaves(tree: Mapping[str, Any], prefix: str = ""
             yield path, v
 
 
+def _serves_from_training_tree(cfg: ArchConfig) -> bool:
+    """The RWKV-6 and Hymba LMs and the encoder-decoder serve from their
+    training trees (no module tree of per-layer leaves)."""
+    return (cfg.family in ("ssm", "hybrid", "audio")
+            or cfg.is_encoder_decoder)
+
+
+def _stack_depths(cfg: ArchConfig) -> Dict[str, int]:
+    """Each layer stack of the reference's tree and its depth: ``layers``
+    (and ``layers_dense`` before a MoE stack) for the LMs, ``enc_layers``
+    and ``dec_layers`` for the encoder-decoder."""
+    if cfg.family == "audio" or cfg.is_encoder_decoder:
+        return {"enc_layers": cfg.n_encoder_layers,
+                "dec_layers": cfg.n_layers}
+    if cfg.family in ("ssm", "hybrid"):
+        return {"layers": cfg.n_layers}
+    n_pre, n_main = _split_layers(cfg)
+    return {"layers": n_main, "layers_dense": n_pre}
+
+
 def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig, *,
                     device="cuda") -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays -> the port's state dict."""
-    if cfg.family == "ssm":
-        raise ValueError(f"{cfg.name}: the RWKV LM serves from its training "
-                         f"tree; use train_params_from_jax")
-    reason = serve_unsupported_reason(cfg)
-    if reason:
-        raise NotImplementedError(f"{cfg.name}: {reason}")
-    n_pre, n_main = _split_layers(cfg)
-    depth = {"layers": n_main, "layers_dense": n_pre}
+    if _serves_from_training_tree(cfg):
+        raise ValueError(f"{cfg.name}: family '{cfg.family}' serves from "
+                         f"its training tree; use train_params_from_jax")
+    depth = _stack_depths(cfg)
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(np_params):
         stack, _, rest = path.partition(".")
@@ -175,16 +192,10 @@ def train_params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig, *,
     stacked ``[L, ...]`` layer leaves, so the leaves come in
     ``jax.tree.leaves`` order.  Each stack's leaves must be as deep as
     the config's: ``layers`` holds the main stack and ``layers_dense`` the
-    dense layers before a MoE stack (``first_k_dense``)."""
-    if cfg.family == "ssm":
-        depth = {"layers": cfg.n_layers}
-    else:
-        reason = train_unsupported_reason(cfg)
-        if reason:
-            raise NotImplementedError(f"{cfg.name}: {reason}")
-        n_pre, n_main = _split_layers(cfg)
-        depth = {"layers": n_main, "layers_dense": n_pre}
-    for key, n in depth.items():
+    dense layers before a MoE stack (``first_k_dense``); the
+    encoder-decoder's ``enc_layers`` hold ``n_encoder_layers`` and its
+    ``dec_layers`` ``n_layers``."""
+    for key, n in _stack_depths(cfg).items():
         if n == 0:
             if key in np_params:
                 raise ValueError(f"{key}: present, config has no such "

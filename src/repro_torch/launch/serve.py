@@ -11,10 +11,17 @@
   # on the card, full width (random weights from --seed):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b \
       --no-reduced --paged --param-dtype bfloat16 --requests 8 --slots 8
+
+The encoder-decoder (seamless-m4t-large-v2) serves on stub audio frames
+(``cfg.frontend_tokens`` of them a request, drawn from --seed) that every
+prefill takes beside its prompts.  The RWKV-6 and Hymba LMs and the
+encoder-decoder serve through ``ServeEngine`` only: ``--paged`` gets the
+paged engine's refusal.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -23,10 +30,26 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import build
+from repro_torch.models.stubs import audio_frame_embeds
 from repro_torch.serve import GenerationConfig, PagedServeEngine, ServeEngine
 from repro_torch.telemetry import MetricsLogger
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def with_stub_frames(bundle, n: int, seed: int):
+    """The bundle with a prefill that takes, beside each wave's prompts,
+    the first rows of ``n`` stub frame sequences drawn from ``seed``."""
+    cfg = bundle.cfg
+    frames = audio_frame_embeds(
+        torch.Generator(device=bundle.device).manual_seed(seed), n,
+        cfg.frontend_tokens, cfg.d_model)
+
+    def prefill(params, batch):
+        b = batch["tokens"].shape[0]
+        return bundle.prefill(params, dict(batch, frames=frames[:b]))
+
+    return dataclasses.replace(bundle, prefill=prefill)
 
 
 def main(argv=None) -> None:
@@ -73,6 +96,8 @@ def main(argv=None) -> None:
     bundle = build(cfg, param_dtype=DTYPES[args.param_dtype],
                    decode_impl=args.decode_impl, device=device)
     params = bundle.init(torch.Generator(device=device).manual_seed(args.seed))
+    if cfg.is_encoder_decoder:
+        bundle = with_stub_frames(bundle, args.slots, args.seed)
     max_len = args.prompt_len + args.max_new
     gen = GenerationConfig(max_new_tokens=args.max_new,
                            temperature=args.temperature, seed=args.seed)

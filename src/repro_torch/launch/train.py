@@ -3,9 +3,9 @@
 Trains the arch's ``.reduced()`` smoke variant (as the reference's CLI
 always does) with the Hier-AVG round on one device: the card by default,
 the CPU with ``--device cpu`` (the kernels' plain versions).  ``--arch``
-takes every family the port trains: the RWKV-6 LM and the dense, MoE,
-MLA and VLM decoders (the VLM's batches carry the stub's patch
-embeddings).
+takes every family: the RWKV-6 and Hymba LMs, the dense, MoE, MLA and VLM
+decoders (the VLM's batches carry the stub's patch embeddings) and the
+encoder-decoder (its batches carry stub audio frames).
 
   # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \

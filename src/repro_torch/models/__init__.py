@@ -1,12 +1,13 @@
 """Model zoo: ``build(cfg, **options)`` returns a ModelBundle.
 
-Ported so far, for training and for serving (dense and paged caches;
-the RWKV-6 LM through its constant-size state): the dense GQA decoders
+Every family of the reference trains and serves: the dense GQA decoders
 (yi-34b, starcoder2-15b, deepseek-67b, mistral-large-123b), the MoE and
-MLA decoders (deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b), the M-RoPE
-VLM backbone (qwen2-vl-2b) and the RWKV-6 LM (rwkv6-1.6b); other
-families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+MLA decoders (deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b) and the M-RoPE
+VLM backbone (qwen2-vl-2b) through dense and paged caches; the RWKV-6 LM
+(rwkv6-1.6b) and the Hymba hybrid LM (hymba-1.5b) through their
+constant-size states; the SeamlessM4T-style encoder-decoder
+(seamless-m4t-large-v2, stub audio frames) through a dense cache with the
+encoder's cross K/V.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import IMPLS
+from repro_torch.models.encdec import build_encdec
 from repro_torch.models.transformer import (ModelBundle, build_decoder_lm,
-                                            build_rwkv_lm)
+                                            build_hymba_lm, build_rwkv_lm)
 
 
 def build(cfg: ArchConfig, *, param_dtype=torch.float32, compute_dtype=None,
@@ -41,6 +43,13 @@ def build(cfg: ArchConfig, *, param_dtype=torch.float32, compute_dtype=None,
         return build_rwkv_lm(cfg, param_dtype=param_dtype,
                              compute_dtype=compute_dtype, remat=remat,
                              impl=impl, device=device, generator=generator)
+    kw = dict(param_dtype=param_dtype, compute_dtype=compute_dtype,
+              remat=remat, impl=impl, cache_dtype=cache_dtype,
+              device=device, generator=generator)
+    if cfg.family == "hybrid":
+        return build_hymba_lm(cfg, **kw)
+    if cfg.family == "audio" or cfg.is_encoder_decoder:
+        return build_encdec(cfg, **kw)
     return build_decoder_lm(cfg, param_dtype=param_dtype,
                             compute_dtype=compute_dtype, remat=remat,
                             rolling_decode=rolling_decode,

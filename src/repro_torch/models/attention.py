@@ -2,7 +2,9 @@
 
 Ported: the training attention (``full_attention``, which dispatches to
 ``kernels.ops.flash_attention`` under the reference's condition, and
-``gqa_attention``), the masked attention core, GQA projections, the
+``gqa_attention``; non-causal and extra-masked attention and the
+encoder-decoder's ``cross_attention`` through the masked core, as in the
+reference), the masked attention core, GQA projections, the
 dense serving cache (``init_kv_cache``, ``prefill_kv_cache``,
 ``gqa_decode``, full or rolling), the paged cache (``init_paged_kv``,
 ``paged_slot_coords``, ``gqa_decode_paged``, ``gqa_prefill_paged_chunk``),
@@ -95,19 +97,29 @@ def full_attention(q, k, v, *, causal: bool = True, window: int = 0,
     static ``q_offset`` of 0 (the reference's condition for its Pallas
     kernel) it is ``kernels.ops.flash_attention`` under ``impl``
     ("auto": the CUDA kernels for CUDA tensors, forward and backward); at
-    another offset, the masked core.  Non-causal and extra-masked
-    attention (the encoder-decoder's cross-attention) are not ported
-    yet: ROADMAP Queue 1 item 9."""
-    if not causal or extra_mask is not None:
-        raise NotImplementedError("non-causal or extra-masked attention is "
-                                  "not ported yet: ROADMAP Queue 1 item 9")
+    another offset, the masked core.  Non-causal attention (the
+    encoder's) and ``extra_mask`` [B,1,S,T] bool (the cross-attention's
+    frame mask, anded with the causal one where ``causal``) go through
+    the masked core over an all-true or given mask, as in the reference,
+    whose Pallas kernel is causal only."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if isinstance(q_offset, int) and q_offset == 0:
-        return kops.flash_attention(q, k, v, causal=True, window=window,
-                                    scale=float(scale), impl=impl)
-    return masked_attention(q, k, v, window=window, q_offset=q_offset,
-                            scale=scale)
+    if causal and extra_mask is None:
+        if isinstance(q_offset, int) and q_offset == 0:
+            return kops.flash_attention(q, k, v, causal=True, window=window,
+                                        scale=float(scale), impl=impl)
+        return masked_attention(q, k, v, window=window, q_offset=q_offset,
+                                scale=scale)
+    b, s = q.shape[:2]
+    t = k.shape[1]
+    if causal:
+        m = causal_mask(s, t, window, q_offset, device=q.device)
+    else:
+        m = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    m = m[None, None].expand(b, 1, s, t)
+    if extra_mask is not None:
+        m = m & extra_mask
+    return _gqa_scores_attend(q, k, v, m, scale)
 
 
 # ===================================================================== #
@@ -147,6 +159,21 @@ def gqa_attention(p: Mapping[str, torch.Tensor], x, cos, sin, *,
     out = full_attention(q, k, v, causal=causal, window=window, impl=impl)
     return mm(out.reshape(x.shape[0], x.shape[1], n_heads * head_dim),
               p["wo"])
+
+
+def cross_attention(p: Mapping[str, torch.Tensor], x, enc_k, enc_v,
+                    enc_mask, *, n_heads: int, n_kv_heads: int,
+                    head_dim: int) -> torch.Tensor:
+    """Decoder cross-attention: x [B,S,d] queries against the encoder's
+    precomputed enc_k/enc_v [B,Te,Hkv,D]; ``enc_mask`` [B,Te] bool (None:
+    every frame) hides padded frames.  No RoPE, no causality."""
+    b, s, _ = x.shape
+    q = mm(x, p["wq"]).reshape(b, s, n_heads, head_dim)
+    m = None
+    if enc_mask is not None:
+        m = enc_mask[:, None, None, :].expand(b, 1, s, enc_k.shape[1])
+    out = full_attention(q, enc_k, enc_v, causal=False, extra_mask=m)
+    return mm(out.reshape(b, s, n_heads * head_dim), p["wo"])
 
 
 # --------------------------- dense cache ------------------------------ #

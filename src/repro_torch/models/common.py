@@ -261,17 +261,28 @@ class _Remat(torch.autograd.Function):
     def backward(ctx, *cotangents):
         body, treedef, n_carry, n_const = ctx.args
         saved = ctx.saved_tensors
-        consts = saved[n_carry:n_carry + n_const]
+        # the constants that take a gradient (a decoder layer's encoder
+        # output; never cos and sin) are pulled through with the carry
+        diff = [j for j in range(n_const)
+                if ctx.needs_input_grad[4 + n_carry + j]]
+        n_diff = len(diff)
 
         def layer(*xs):
-            lp = unflatten(treedef, list(xs[n_carry:]))
-            return tuple(body(xs[:n_carry], lp, consts))
+            consts = list(saved[n_carry:n_carry + n_const])
+            for j, c in zip(diff, xs[n_carry:n_carry + n_diff]):
+                consts[j] = c
+            lp = unflatten(treedef, list(xs[n_carry + n_diff:]))
+            return tuple(body(xs[:n_carry], lp, tuple(consts)))
 
-        primals = saved[:n_carry] + saved[n_carry + n_const:]
+        primals = (saved[:n_carry] + tuple(saved[n_carry + j] for j in diff)
+                   + saved[n_carry + n_const:])
         _, vjp = torch.func.vjp(layer, *primals)
         grads = vjp(tuple(cotangents))
-        return ((None,) * 4 + tuple(grads[:n_carry]) + (None,) * n_const
-                + tuple(grads[n_carry:]))
+        const_grads = [None] * n_const
+        for j, g in zip(diff, grads[n_carry:n_carry + n_diff]):
+            const_grads[j] = g
+        return ((None,) * 4 + tuple(grads[:n_carry]) + tuple(const_grads)
+                + tuple(grads[n_carry + n_diff:]))
 
 
 def scan_layers(body: Callable, carry, stacked_params: Params, *,
@@ -282,8 +293,9 @@ def scan_layers(body: Callable, carry, stacked_params: Params, *,
     ``remat=True`` recomputes each layer in the backward instead of
     keeping its activations (:class:`_Remat`): memory only, the same
     bits.  Tensors the body reads besides the carry and its leaves (cos
-    and sin) go in ``consts``, so that the recomputation reads them as
-    the forward did under the trainer's vmap."""
+    and sin, a decoder's encoder output) go in ``consts``, so that the
+    recomputation reads them as the forward did under the trainer's vmap;
+    a const that needs a gradient takes it through the recomputation."""
     single = isinstance(carry, torch.Tensor)
     carry = (carry,) if single else tuple(carry)
     consts = tuple(consts)

@@ -1,12 +1,11 @@
 """Modality-frontend stubs and synthetic training batches (PyTorch port of
 ``repro/models/stubs.py``).
 
-For the [vlm] architectures only the transformer backbone is implemented;
-the ViT encoder is replaced by precomputed patch embeddings of the right
-shape (random, from the caller's generator), with the (t, h, w) position
-grid that M-RoPE consumes.  Ported: the text families (dense, moe, ssm,
-hybrid) and the VLM stub.  The [audio] frontend stub raises until its
-family is ported (ROADMAP Queue 1 item 9).
+For the [vlm] and [audio] architectures only the transformer backbone is
+implemented; the ViT encoder and the speech frontend are replaced by
+precomputed embeddings of the right shape (random, from the caller's
+generator): patch embeddings with the (t, h, w) position grid that M-RoPE
+consumes, and frame embeddings for the encoder-decoder.
 """
 from __future__ import annotations
 
@@ -53,6 +52,16 @@ def mrope_positions(batch: int, n_patches: int, text_len: int,
     return pos[None].expand(batch, n_patches + text_len, 3)
 
 
+def audio_frame_embeds(generator: torch.Generator, batch: int,
+                       n_frames: int, d_model: int,
+                       dtype=torch.float32) -> torch.Tensor:
+    """Stub speech-frontend output: [B, n_frames, d_model], 0.02 x
+    standard normal, on the generator's device."""
+    x = torch.randn((batch, n_frames, d_model), generator=generator,
+                    device=generator.device)
+    return (0.02 * x).to(dtype)
+
+
 def make_train_batch(generator: torch.Generator, cfg: ArchConfig,
                      batch: int, seq_len: int,
                      dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -61,12 +70,21 @@ def make_train_batch(generator: torch.Generator, cfg: ArchConfig,
     uniform over the vocab; for [vlm], ``min(frontend_tokens,
     seq_len // 4)`` patch embeddings ('vision_embeds' [batch, Nv, d]) in
     front of seq_len - Nv text tokens, and their 'positions'
-    [batch, seq_len, 3]."""
-    if cfg.family == "audio":
-        raise NotImplementedError("the audio frontend stub is not ported "
-                                  "yet (ROADMAP Queue 1 item 9)")
+    [batch, seq_len, 3]; for [audio], ``min(frontend_tokens, max(4,
+    seq_len // 4))`` stub frames ('frames' [batch, Tf, d]) beside
+    seq_len tokens and labels."""
     kw = dict(generator=generator, device=generator.device,
               dtype=torch.int32)
+    if cfg.family == "audio":
+        tf = min(cfg.frontend_tokens, max(4, seq_len // 4))
+        return {
+            "frames": audio_frame_embeds(generator, batch, tf, cfg.d_model,
+                                         dtype),
+            "tokens": torch.randint(0, cfg.vocab_size, (batch, seq_len),
+                                    **kw),
+            "labels": torch.randint(0, cfg.vocab_size, (batch, seq_len),
+                                    **kw),
+        }
     if cfg.family == "vlm":
         nv = min(cfg.frontend_tokens, max(1, seq_len // 4))
         st = seq_len - nv

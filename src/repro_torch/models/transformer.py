@@ -1,6 +1,6 @@
 """Decoder-LM assembly (PyTorch port of ``repro/models/transformer.py``):
-the dense, MoE, MLA and VLM decoders for training, the dense GQA decoders
-for paged serving, and the RWKV-6 LM for training.
+the dense, MoE, MLA and VLM decoders, the RWKV-6 LM and the Hymba hybrid
+LM, each for training and serving.
 
 Training (``init_train``, ``forward``, ``loss_fn``) keeps the reference's
 parameter tree: a dict with the reference's keys whose layer stacks hold
@@ -30,7 +30,10 @@ rolling) and the paged pool (``init_paged_cache``,
 per-layer dicts, updated in place.  The RWKV-6 LM serves from its
 training tree through a constant-size state (``prefill`` through the WKV
 kernel, ``decode_step`` in plain products); it has no paged path, as in
-the reference.  The serving entry points run under ``torch.no_grad()``.
+the reference.  So does the Hymba LM (:func:`build_hymba_lm`), whose
+per-layer state is a rolling K/V cache of ``sliding_window`` positions
+and the SSM head's fp32 scan and conv states.  The serving entry points
+run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import hybrid as hyb
+from repro_torch.models import mamba as mam
 from repro_torch.models import rwkv6 as rwk
 from repro_torch.models.attention import (
     Pages, gqa_attention, gqa_decode, gqa_decode_paged, gqa_params,
@@ -63,18 +68,12 @@ def train_unsupported_reason(cfg: ArchConfig) -> Optional[str]:
     the RWKV family is :func:`build_rwkv_lm`'s."""
     if cfg.family == "ssm":
         return "family 'ssm' is the RWKV LM (build_rwkv_lm)"
-    if cfg.family in ("hybrid", "audio") or cfg.is_encoder_decoder:
-        return (f"family '{cfg.family}' is not ported yet "
-                f"(ROADMAP Queue 1: remaining model families)")
+    if cfg.family == "hybrid":
+        return "family 'hybrid' is the Hymba LM (build_hymba_lm)"
+    if cfg.family == "audio" or cfg.is_encoder_decoder:
+        return (f"family '{cfg.family}' is the encoder-decoder "
+                f"(models/encdec.py::build_encdec)")
     return None
-
-
-def serve_unsupported_reason(cfg: ArchConfig) -> Optional[str]:
-    """Why the port cannot serve ``cfg`` (None if it can): every family
-    it trains serves."""
-    if cfg.family == "ssm":
-        return None
-    return train_unsupported_reason(cfg)
 
 
 def _check_compute_dtype(param_dtype, compute_dtype):
@@ -321,8 +320,9 @@ class ModelBundle:
       decode_step_paged(params, tokens [B], pages, tables, lengths,
           active) -> (logits [B,V], pages)
 
-    The paged entry points are None for the RWKV LM, whose state has a
-    constant size, as in the reference.
+    The paged entry points are None for the RWKV and Hymba LMs, whose
+    state has a constant size, and for the encoder-decoder, as in the
+    reference.
     """
     cfg: ArchConfig
     device: torch.device
@@ -671,6 +671,127 @@ def build_rwkv_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
             lambda x, lp, st: rwk.block_decode(lp, x, st, n_heads=H,
                                                head_dim=hd,
                                                eps=cfg.norm_eps),
+            x, params["layers"], cache)
+        h = rmsnorm(params["final_norm"]["scale"], x[:, 0], cfg.norm_eps)
+        return mm(h, params["lm_head"]), cache
+
+    return ModelBundle(cfg=cfg, device=device, init=init, init_train=init,
+                       forward=forward, loss_fn=loss_fn, prefill=prefill,
+                       decode_step=decode_step, init_cache=init_cache)
+
+
+# ===================================================================== #
+# Hymba hybrid LM
+# ===================================================================== #
+
+def build_hymba_lm(cfg: ArchConfig, *, param_dtype=torch.float32,
+                   compute_dtype=None, remat: bool = False,
+                   impl: str = "auto", cache_dtype=torch.bfloat16,
+                   device="cuda", generator: Optional[torch.Generator] = None
+                   ) -> ModelBundle:
+    """The Hymba LM (``repro/models/transformer.py:600``), for training
+    and for serving from the same tree (``layers`` stacked ``[L, ...]``).
+    ``impl`` picks the sliding-window attention of training and of the
+    prefill (kernels/ops.py::flash_attention); the SSM scan is plain
+    PyTorch (models/mamba.py).  The serving state of a layer is a rolling
+    K/V cache of ``cfg.sliding_window`` positions in ``cache_dtype`` and
+    the fp32 SSM and conv states; the decode's RoPE position is the
+    cache's count, which the reference's rolling prefill caps at the
+    window, and the port keeps that.  ``compute_dtype`` and ``remat`` are
+    :func:`build_decoder_lm`'s."""
+    if cfg.family != "hybrid":
+        raise ValueError(f"{cfg.name}: build_hymba_lm takes the 'hybrid' "
+                         f"family")
+    device = torch.device(device)
+    compute_dtype = compute_dtype or param_dtype
+    hd, window = cfg.resolved_head_dim, cfg.sliding_window
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=hd,
+              ssm_state=cfg.ssm_state, eps=cfg.norm_eps, act=cfg.act)
+
+    def init(gen: Optional[torch.Generator] = None) -> Params:
+        kw_ = dict(device=device,
+                   generator=_generator(gen, generator, device))
+        return {
+            "embed": embed_init(cfg.padded_vocab, cfg.d_model, param_dtype,
+                                **kw_),
+            "layers": stacked_init(lambda: hyb.hymba_block_params(
+                d_model=cfg.d_model, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, head_dim=hd, d_ff=cfg.d_ff,
+                ssm_state=cfg.ssm_state, ssm_expand=cfg.ssm_expand,
+                act=cfg.act, dtype=param_dtype, **kw_), cfg.n_layers),
+            "final_norm": {"scale": rmsnorm_init(cfg.d_model, param_dtype,
+                                                 device=device)},
+            "lm_head": dense_init(cfg.d_model, cfg.padded_vocab,
+                                  param_dtype, **kw_),
+        }
+
+    def _rope(b, s, dev):
+        return rope_cos_sin(text_positions(b, s, device=dev), hd,
+                            cfg.rope_theta)
+
+    def forward(params: Params, embeds, positions=None):
+        _check_compute_dtype(param_dtype, compute_dtype)
+        b, s, _ = embeds.shape
+        cos, sin = _rope(b, s, embeds.device) if positions is None else \
+            rope_cos_sin(positions, hd, cfg.rope_theta)
+        x = scan_layers(lambda x, lp, cos, sin: hyb.hymba_block_apply(
+            lp, x, cos, sin, window=window, impl=impl, remat=remat, **kw),
+            embeds.to(compute_dtype), params["layers"], remat=remat,
+            consts=(cos, sin))
+        return (rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps),
+                torch.zeros((), device=embeds.device))
+
+    def loss_fn(params: Params, batch):
+        h, _ = forward(params, params["embed"][batch["tokens"].long()])
+        return softmax_cross_entropy(mm(h, params["lm_head"]),
+                                     batch["labels"], batch.get("mask"))
+
+    def init_cache(batch: int, max_len: int = 0) -> List:
+        return [hyb.init_hymba_state(
+            batch, d_model=cfg.d_model, n_kv_heads=cfg.n_kv_heads,
+            head_dim=hd, ssm_state=cfg.ssm_state,
+            ssm_expand=cfg.ssm_expand, window=window, dtype=cache_dtype,
+            device=device) for _ in range(cfg.n_layers)]
+
+    @torch.no_grad()
+    def prefill(params: Params, batch):
+        """The prompt from zero states -> (last-position logits [B,V],
+        each layer's state: the prompt's last ``window`` K/V, the final
+        SSM state and conv tail)."""
+        x = params["embed"][batch["tokens"].long()].to(compute_dtype)
+        b, s, _ = x.shape
+        cos, sin = _rope(b, s, x.device)
+
+        def body(x, lp, _):
+            h = rmsnorm(lp["ln_in"]["scale"], x, cfg.norm_eps)
+            a = gqa_attention(lp["attn"], h, cos, sin, n_heads=cfg.n_heads,
+                              n_kv_heads=cfg.n_kv_heads, head_dim=hd,
+                              window=window, impl=impl)
+            kv = prefill_kv_cache(lp["attn"], h, cos, sin,
+                                  n_heads=cfg.n_heads,
+                                  n_kv_heads=cfg.n_kv_heads, head_dim=hd,
+                                  max_len=window, dtype=cache_dtype,
+                                  rolling=True, window=window)
+            m, h_t, conv_tail = mam.mamba_apply(lp["ssm"], h,
+                                                state=cfg.ssm_state)
+            return hyb._fuse(lp, x, a, m, cfg.norm_eps, cfg.act), \
+                {"kv": kv, "ssm": h_t, "conv": conv_tail}
+
+        x, cache = scan_layers_with_cache(body, x, params["layers"],
+                                          [None] * cfg.n_layers)
+        h = rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
+        return mm(h[:, -1], params["lm_head"]), cache
+
+    @torch.no_grad()
+    def decode_step(params: Params, tokens, cache):
+        b = tokens.shape[0]
+        pos = torch.full((b, 1), cache[0]["kv"]["pos"], dtype=torch.int32,
+                         device=tokens.device)
+        cos, sin = rope_cos_sin(pos, hd, cfg.rope_theta)
+        x = params["embed"][tokens.long()][:, None].to(compute_dtype)
+        x, cache = scan_layers_with_cache(
+            lambda x, lp, st: hyb.hymba_block_decode(lp, x, st, cos, sin,
+                                                     **kw),
             x, params["layers"], cache)
         h = rmsnorm(params["final_norm"]["scale"], x[:, 0], cfg.norm_eps)
         return mm(h, params["lm_head"]), cache

@@ -168,7 +168,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
 def test_full_attention_dispatch():
     """The model's entry: at a static offset of 0 the (differentiable)
     kernel path, elsewhere the masked core; both give the oracle's
-    semantics.  Non-causal attention is not ported and raises."""
+    semantics.  Non-causal attention takes the masked core, as the
+    reference's does."""
     from repro_torch.models import attention as tattn
     x = _inputs(1, 64, 4, 2, 32, seed=6)
     q, k, v = (_t(x[n]) for n in "qkv")
@@ -180,5 +181,11 @@ def test_full_attention_dispatch():
     got = tattn.full_attention(q[:, 32:], k, v, window=16, q_offset=32)
     np.testing.assert_allclose(got.numpy(), want[:, 32:], atol=FWD_TOL,
                                rtol=FWD_TOL)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tattn.full_attention(q, k, v, causal=False)
+    # non-causal (the encoder's) takes the masked core over an all-true
+    # mask, as the reference's does
+    from repro.models import attention as jattn
+    np.testing.assert_allclose(
+        tattn.full_attention(q, k, v, causal=False).numpy(),
+        np.asarray(jax.jit(lambda q, k, v: jattn.full_attention(
+            q, k, v, causal=False))(x["q"], x["k"], x["v"])),
+        atol=FWD_TOL, rtol=FWD_TOL)

@@ -324,9 +324,15 @@ def test_loader_shapes_streams_and_refusals():
     nd = len(hier.batch_dims)
     for k in r0:
         assert torch.equal(mine[k], mesh.take_block(r0[k], dim=nd))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_train_batch(torch.Generator(),
-                         get_config("seamless-m4t-large-v2"), 1, 8)
+    # the encoder-decoder's batches (stub frames beside the tokens) go
+    # through the loader like any other: every leaf gets the round's dims
+    acfg = get_config("seamless-m4t-large-v2").reduced()
+    ar = HierDataLoader(lambda gen, n: make_train_batch(gen, acfg, n, 8),
+                        topo=topo, hier=hier, per_learner_batch=3, seed=7,
+                        device="cpu").next_round()
+    lead = hier.batch_dims + topo.shape + (3,)
+    assert ar["frames"].shape == lead + (4, acfg.d_model)
+    assert ar["tokens"].shape == ar["labels"].shape == lead + (8,)
 
 
 def test_rwkv_serving_entry_points_raise():

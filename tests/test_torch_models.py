@@ -199,13 +199,30 @@ def _paged_run(pair):
                 np.asarray(jpages[name][layer][:, 1:]), **TOL)
 
 
-def test_unported_families_raise():
-    """The hybrid family does not build; the MoE, MLA and VLM decoders
-    build, train and now serve through both engines (their parity with
-    the reference is ``tests/test_torch_serve_families.py``'s)."""
+def test_every_family_builds_and_serves():
+    """Every family builds and trains.  The MoE, MLA and VLM decoders
+    serve through both engines (their parity with the reference is
+    ``tests/test_torch_serve_families.py``'s); the Hymba LM and the
+    encoder-decoder serve through ``ServeEngine`` (the encoder-decoder
+    with its frames) and the paged engine refuses them, as the
+    reference's does (their parity: ``tests/test_torch_hymba.py`` and
+    ``tests/test_torch_encdec.py``)."""
+    from repro_torch.models.stubs import audio_frame_embeds
     from repro_torch.serve.engine import PagedServeEngine, ServeEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("hymba-1.5b").reduced(), device="cpu")
+    gen = GenerationConfig(max_new_tokens=4)
+    prompts = np.arange(1, 19, dtype=np.int32).reshape(2, 9)
+    for arch in ("hymba-1.5b", "seamless-m4t-large-v2"):
+        cfg = get_config(arch).reduced()
+        bundle = build(cfg, device="cpu")
+        params = bundle.init_train(torch.Generator().manual_seed(0))
+        with pytest.raises(ValueError, match="use ServeEngine"):
+            PagedServeEngine(bundle, params, max_len=32, gen=gen)
+        extras = {"frames": audio_frame_embeds(
+            torch.Generator().manual_seed(1), 2, 8, cfg.d_model)} \
+            if cfg.is_encoder_decoder else None
+        toks = ServeEngine(bundle, params, max_len=32, gen=gen).generate(
+            prompts, extras)
+        assert toks.shape == (2, 4) and (toks < cfg.vocab_size).all()
     reqs = [np.arange(1, 10, dtype=np.int32), np.arange(3, 8,
                                                         dtype=np.int32)]
     for arch in ("deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
@@ -216,7 +233,6 @@ def test_unported_families_raise():
         params = bundle.init()
         if cfg.first_k_dense:
             assert len(params.layers_dense) == cfg.first_k_dense
-        gen = GenerationConfig(max_new_tokens=4)
         dense = ServeEngine(bundle, params, max_len=32, gen=gen)
         paged = PagedServeEngine(bundle, params, max_len=32, page_size=8,
                                  prefill_chunk=8, gen=gen)

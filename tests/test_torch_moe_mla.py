@@ -305,7 +305,16 @@ def test_vlm_batch_reaches_each_learner_intact():
     assert torch.isfinite(m["loss"]).all()
 
 
-def test_make_train_batch_refuses_audio_only():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        stubs.make_train_batch(torch.Generator(),
-                               get_config("seamless-m4t-large-v2"), 1, 8)
+def test_make_train_batch_takes_audio_too():
+    """The family dispatch: the VLM's batch carries patch embeddings and
+    positions, the encoder-decoder's stub frames (the reference's
+    ``max(4, seq // 4)`` of them, capped at ``frontend_tokens``)."""
+    gen = torch.Generator().manual_seed(0)
+    cfg = get_config("seamless-m4t-large-v2")
+    for seq, tf in ((8, 4), (64, 16), (8192, 1024)):
+        b = stubs.make_train_batch(gen, cfg, 1, seq)
+        assert sorted(b) == ["frames", "labels", "tokens"]
+        assert b["frames"].shape == (1, tf, cfg.d_model)
+    b = stubs.make_train_batch(gen, get_config("qwen2-vl-2b").reduced(), 1,
+                               32)
+    assert sorted(b) == ["labels", "positions", "tokens", "vision_embeds"]

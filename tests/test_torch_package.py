@@ -51,7 +51,8 @@ def test_importing_every_module_leaves_jax_out():
               "testing", "checkpoint.checkpoint", "data.loader",
               "autotune", "autotune.calibrate", "autotune.probe",
               "autotune.search", "autotune.controller",
-              "launch.analytic"):
+              "launch.analytic", "models.mamba", "models.hybrid",
+              "models.encdec"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -116,7 +116,7 @@ def test_pool_tensors_are_updated_in_place(engines):
 
 @pytest.mark.parametrize("arch", ["yi-34b", "starcoder2-15b",
                                   "deepseek-v2-lite-16b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2", "hymba-1.5b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cache_accounting_matches_reference(arch, dtype):
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
