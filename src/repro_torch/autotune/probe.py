@@ -26,7 +26,15 @@ How the harness differs from the reference's, and why:
   card): every execution starts on a barrier, and its time is the
   largest over the ranks;
 * probes pin the SERIAL bucket schedule, as the reference's do, and the
-  fit consumes ``min_us``; ``warm_us`` (median) is kept for diagnostics.
+  fit consumes ``min_us``; ``warm_us`` (median) is kept for diagnostics;
+* on the card, in one process, each point also carries its device time
+  (``device_min_us``, ``device_warm_us``): each execution timed again by
+  CUDA events, enqueued behind a device sleep long enough that the whole
+  reduction is queued before the card reaches it, so that the reading
+  holds no host time (a point whose enqueue outlasts the sleep is read
+  again behind a longer one).  The host-wall fields keep the reference's
+  meaning; a fit that must not see the host reads the device fields
+  (``fit_comm_model(time_field="device_min_us")``).
 
 The ``tier`` of a sample is the reference's label (``tier_for``): "dci"
 for a global level over several pods.  In one process, or on ranks that
@@ -178,6 +186,10 @@ def measure_point(point: ProbePoint, reps: int = 12, *, device="cuda",
 
     compile_s = run()
     per_exec = [run() for _ in range(reps)]
+    device = None
+    if dev.type == "cuda" and not on_ranks:
+        device = [_device_seconds(torch, fn, params, state, dev,
+                                  max(per_exec)) for _ in range(reps)]
 
     red, tree1 = b["reducer"], b["tree1"]
     pods = point.topo[0]
@@ -206,7 +218,42 @@ def measure_point(point: ProbePoint, reps: int = 12, *, device="cuda",
         "warm_us": round(float(np.median(per_exec)) * 1e6, 1),
         "min_us": round(min(per_exec) * 1e6, 1),
     })
+    if device is not None:
+        rec["device_warm_us"] = round(float(np.median(device)) * 1e6, 1)
+        rec["device_min_us"] = round(min(device) * 1e6, 1)
     return rec
+
+
+# the card's clock, rounded up (an H100 SXM boosts to 1.98 GHz): sleep
+# cycles per second of host enqueue time to cover
+_SLEEP_HZ = 2.0e9
+
+
+def _device_seconds(torch, fn, params, state, dev, host_s: float,
+                    tries: int = 6) -> float:
+    """One execution of ``fn`` timed by CUDA events on ``dev``'s stream,
+    behind a device sleep: if the sleep is still running when the host
+    has enqueued the whole reduction, the events bracket device work
+    alone.  Otherwise the sleep is doubled and the execution read again;
+    a reduction that never queues (one that waits on the device from the
+    host) raises."""
+    cycles = int(2.0 * host_s * _SLEEP_HZ) + 1_000_000
+    for _ in range(tries):
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn(params, state)
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize(dev)
+        if queued:
+            return start.elapsed_time(end) * 1e-3
+        cycles *= 2
+    raise RuntimeError(f"the reduction was not queued behind a sleep of "
+                       f"{cycles // 2} cycles: it waits on the device from "
+                       f"the host, so its device time cannot be read")
 
 
 def run_probe(points: Optional[Sequence[ProbePoint]] = None, *,

@@ -42,6 +42,15 @@ class EFState(NamedTuple):
 _MASK64 = (1 << 64) - 1
 
 
+def _carry(seed: int, fire: int, offset: int) -> torch.Tensor:
+    """An RNG carry: host data the reducers read back, so a real tensor
+    even under a fake mode (the dry run's trace)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        return torch.tensor([int(seed), int(fire), int(offset)],
+                            dtype=torch.int64)
+
+
 def rng_carry(seed: int = 0) -> torch.Tensor:
     """The port's random-k RNG state: int64 ``[seed, fires, offset]`` on
     the CPU.  ``fires`` counts the reductions so far; ``offset`` is the
@@ -49,13 +58,13 @@ def rng_carry(seed: int = 0) -> torch.Tensor:
     states of the pipelined schedule).  The reference carries a JAX PRNG
     key instead, which torch cannot reproduce (convert.py maps one to the
     other)."""
-    return torch.tensor([int(seed), 0, 0], dtype=torch.int64)
+    return _carry(seed, 0, 0)
 
 
 def _advanced(key: torch.Tensor) -> torch.Tensor:
     """The carry after one reduction: one more fire, offset 0."""
     seed, fire, _ = key.tolist()
-    return torch.tensor([seed, fire + 1, 0], dtype=torch.int64)
+    return _carry(seed, fire + 1, 0)
 
 
 def stream_seed(seed: int, fire: int, index: int) -> int:
@@ -141,8 +150,7 @@ class _SparseEFReducer(Reducer):
             return None                      # not bucket-aligned state
         seed, fire, _ = state.key.tolist()
         return [EFState(ref=[refs[i]], err=[errs[i]],
-                        key=torch.tensor([seed, fire, i],
-                                         dtype=torch.int64))
+                        key=_carry(seed, fire, i))
                 for i in range(n)]
 
     def join_bucket_states(self, state: EFState, per_bucket):

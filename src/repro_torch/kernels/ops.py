@@ -9,7 +9,10 @@
                asked for (tests, and chip_smoke.py's comparisons)
 
 A CUDA tensor never falls back to the plain version: the kernel launches
-or the call raises.
+or the call raises.  A fake tensor (``FakeTensorMode``: the dry run's
+trace, launch/dryrun.py) takes the kernel's shape function
+(kernels/shapes.py) under "auto" and "kernel": the twin's outputs and
+scratch, allocated and not computed, where a card would launch it.
 """
 from __future__ import annotations
 
@@ -18,13 +21,21 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import shapes
 
 IMPLS = ("auto", "kernel", "plain")
 
 
 def _resolve(impl: str, t: torch.Tensor) -> str:
+    """The route of a call: "plain", "kernel", or "shape" (a fake
+    tensor where the kernel would launch)."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    if impl == "plain":
+        return impl
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(t):
+        return "shape"
     if impl == "auto":
         return "kernel" if t.is_cuda else "plain"
     return impl
@@ -42,9 +53,13 @@ def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     lengths [B] int32, valid tokens per sequence incl. the query.  The
     kernel's launch count is ``kernels.flash_decode.flash_decode.launches``.
     """
-    if _resolve(impl, q) == "plain":
+    route = _resolve(impl, q)
+    if route == "plain":
         return kref.flash_decode_plain(q, k_pages, v_pages, block_tables,
                                        lengths, window=window, scale=scale)
+    if route == "shape":
+        return shapes.flash_decode(q, k_pages, v_pages, block_tables,
+                                   lengths, window=window, scale=scale)
     from repro_torch.kernels.flash_decode import flash_decode as fd
     return fd(q, k_pages, v_pages, block_tables, lengths, window=window,
               scale=scale)
@@ -59,8 +74,11 @@ def topk_compress(x: torch.Tensor, k: int, *, impl: str = "auto"
     the lowest indices.  The kernel's launch count is
     ``kernels.topk_compress.topk_compress.launches``.
     """
-    if _resolve(impl, x) == "plain":
+    route = _resolve(impl, x)
+    if route == "plain":
         return kref.topk_compress_plain(x, k)
+    if route == "shape":
+        return shapes.topk_compress_many([x], [k])[0]
     from repro_torch.kernels.topk_compress import topk_compress as tk
     return tk(x, k)
 
@@ -78,8 +96,11 @@ def topk_compress_many(xs: Sequence[torch.Tensor], ks: Sequence[int], *,
         raise ValueError(f"need one k per x, got {len(xs)} and {len(ks)}")
     if not xs:
         return []
-    if _resolve(impl, xs[0]) == "plain":
+    route = _resolve(impl, xs[0])
+    if route == "plain":
         return [topk_compress(x, k, impl="plain") for x, k in zip(xs, ks)]
+    if route == "shape":
+        return shapes.topk_compress_many(xs, ks)
     from repro_torch.kernels.topk_compress import topk_compress_many as tkm
     return tkm(xs, ks)
 
@@ -93,8 +114,11 @@ def qint8_pack(x: torch.Tensor, block: int, *,
     across impls.  The kernel's launch count is
     ``kernels.qint8_pack.qint8_pack.launches``.
     """
-    if _resolve(impl, x) == "plain":
+    route = _resolve(impl, x)
+    if route == "plain":
         return kref.qint8_pack_plain(x, block)
+    if route == "shape":
+        return shapes.qint8_pack(x, block)
     from repro_torch.kernels.qint8_pack import qint8_pack as qp
     return qp(x, block)
 
@@ -104,8 +128,11 @@ def qint8_unpack(wire: torch.Tensor, n: int, *,
     """Inverse of :func:`qint8_pack`: int8 [rows, nb, block + 4] -> fp32
     [rows, n].  The kernel's launch count is
     ``kernels.qint8_pack.qint8_unpack.launches``."""
-    if _resolve(impl, wire) == "plain":
+    route = _resolve(impl, wire)
+    if route == "plain":
         return kref.qint8_unpack_plain(wire, n)
+    if route == "shape":
+        return shapes.qint8_unpack(wire, n)
     from repro_torch.kernels.qint8_pack import qint8_unpack as qu
     return qu(wire, n)
 
@@ -115,8 +142,11 @@ def batched_qr(p: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     (PowerSGD's orthonormalization); a rank-deficient column comes back
     as zeros.  The kernel's launch count is
     ``kernels.batched_qr.batched_qr.launches``."""
-    if _resolve(impl, p) == "plain":
+    route = _resolve(impl, p)
+    if route == "plain":
         return kref.batched_qr_plain(p)
+    if route == "shape":
+        return shapes.batched_qr_many([p])[0]
     from repro_torch.kernels.batched_qr import batched_qr as bqr
     return bqr(p)
 
@@ -131,8 +161,11 @@ def batched_qr_many(ps: Sequence[torch.Tensor], *, impl: str = "auto"
     ps = list(ps)
     if not ps:
         return []
-    if _resolve(impl, ps[0]) == "plain":
+    route = _resolve(impl, ps[0])
+    if route == "plain":
         return [batched_qr(p, impl="plain") for p in ps]
+    if route == "shape":
+        return shapes.batched_qr_many(ps)
     from repro_torch.kernels.batched_qr import batched_qr_many as bqm
     return bqm(ps)
 
@@ -177,12 +210,14 @@ class _AttentionBackward(torch.autograd.Function):
             return kref.flash_attention_backward_plain(
                 q, k, v, o, lse, do, causal=causal, window=window,
                 scale=scale)
+        q, k, v, o, lse, do = (x.contiguous() for x in (q, k, v, o, lse, do))
+        if impl == "shape":
+            return shapes.flash_attention_backward(q, k, v, o, lse, do,
+                                                   window)
         from repro_torch.kernels.flash_attention import \
             flash_attention_backward
-        return flash_attention_backward(
-            q.contiguous(), k.contiguous(), v.contiguous(), o.contiguous(),
-            lse.contiguous(), do.contiguous(), causal=causal,
-            window=window, scale=scale)
+        return flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                        window=window, scale=scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -200,10 +235,12 @@ class _Attention(torch.autograd.Function):
         if impl == "plain":
             return kref.flash_attention_plain(q, k, v, causal=causal,
                                               window=window, scale=scale)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if impl == "shape":
+            return shapes.flash_attention_fwd(q, k, v, window)
         from repro_torch.kernels.flash_attention import flash_attention_fwd
-        return flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal,
-                                   window=window, scale=scale)
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   scale=scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -251,9 +288,11 @@ class _WKVBackward(torch.autograd.Function):
         if impl == "plain":
             return kref.rwkv6_wkv_backward_plain(r, k, v, w, u, ckpt, dy,
                                                  dsT)
+        args = [x.contiguous() for x in (r, k, v, w, u, ckpt, dy, dsT)]
+        if impl == "shape":
+            return shapes.rwkv6_wkv_backward(*args)
         from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_backward
-        return rwkv6_wkv_backward(*(x.contiguous() for x in
-                                    (r, k, v, w, u, ckpt, dy, dsT)))
+        return rwkv6_wkv_backward(*args)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -270,9 +309,11 @@ class _WKV(torch.autograd.Function):
     def forward(r, k, v, w, u, s0, impl):
         if impl == "plain":
             return kref.rwkv6_wkv_forward_plain(r, k, v, w, u, s0)
+        args = [x.contiguous() for x in (r, k, v, w, u, s0)]
+        if impl == "shape":
+            return shapes.rwkv6_wkv_forward(*args)
         from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_forward
-        return rwkv6_wkv_forward(*(x.contiguous() for x in
-                                   (r, k, v, w, u, s0)))
+        return rwkv6_wkv_forward(*args)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

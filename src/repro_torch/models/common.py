@@ -328,3 +328,7 @@ def scan_layers_with_cache(body: Callable, x, layers, cache: List):
         x, lc = body(x, lp, lc)
         new.append(lc)
     return x, new
+
+
+def count_params(params: Params) -> int:
+    return sum(int(x.numel()) for x in leaves(params))

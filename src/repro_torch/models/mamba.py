@@ -99,11 +99,21 @@ def _ssm_params(p, u: torch.Tensor, state: int):
     return dt, bm, cm
 
 
+def _fake(t: torch.Tensor) -> bool:
+    """A fake tensor (the dry run's trace, launch/dryrun.py): the step
+    loops below then allocate their outputs and skip the steps, which
+    write in place (the memory is the same, and nothing is computed)."""
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)
+
+
 def scan_states(da: torch.Tensor, dbu: torch.Tensor,
                 h0: torch.Tensor) -> torch.Tensor:
     """h_t = da_t * h_{t-1} + dbu_t over t, from h0 [B,Ci,N]; da, dbu
     [B,T,Ci,N] fp32 -> every state [B,T,Ci,N]."""
     hs = torch.empty_like(dbu)
+    if _fake(dbu):
+        return hs               # the steps write in place: no allocation
     h = h0
     for da_t, dbu_t, h_t in zip(da.unbind(1), dbu.unbind(1), hs.unbind(1)):
         h = torch.addcmul(dbu_t, da_t, h, out=h_t)
@@ -117,6 +127,8 @@ def scan_states_backward(da, hs, h0, g_hs):
     (d da, d dbu, d h0 = g_0 da_0)."""
     g_da = torch.empty_like(da)
     g_dbu = torch.empty_like(da)
+    if _fake(da):
+        return g_da, g_dbu, g_dbu[:, 0] * da[:, 0]
     das, gs, gds = da.unbind(1), g_dbu.unbind(1), g_da.unbind(1)
     prev = (h0,) + hs.unbind(1)[:-1]
     own = g_hs.unbind(1)

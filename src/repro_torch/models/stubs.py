@@ -100,3 +100,30 @@ def make_train_batch(generator: torch.Generator, cfg: ArchConfig,
                                     **kw),
             "labels": torch.randint(0, cfg.vocab_size, (batch, seq_len),
                                     **kw)}
+
+
+def train_batch_specs(cfg: ArchConfig, batch: int, seq_len: int,
+                      dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for the dry run (shapes and dtypes, nothing
+    allocated): the reference's ``ShapeDtypeStruct`` stand-ins, with the full
+    ``frontend_tokens`` of patches or frames."""
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    if cfg.family == "vlm":
+        nv = cfg.frontend_tokens
+        st = seq_len - nv
+        return {
+            "tokens": meta((batch, st), torch.int32),
+            "labels": meta((batch, st), torch.int32),
+            "vision_embeds": meta((batch, nv, cfg.d_model), dtype),
+            "positions": meta((batch, seq_len, 3), torch.int32),
+        }
+    if cfg.family == "audio":
+        return {
+            "frames": meta((batch, cfg.frontend_tokens, cfg.d_model), dtype),
+            "tokens": meta((batch, seq_len), torch.int32),
+            "labels": meta((batch, seq_len), torch.int32),
+        }
+    return {"tokens": meta((batch, seq_len), torch.int32),
+            "labels": meta((batch, seq_len), torch.int32)}

@@ -27,6 +27,7 @@ from repro_torch.core import hier_avg as th
 from repro_torch.core.topology import (HierTopology, average_over,
                                        global_average, local_average)
 from repro_torch.data.loader import HierDataLoader, round_batch_shardings
+from repro_torch.launch import hlo_analysis as ha
 from repro_torch.launch.mesh import level_process_groups
 from repro_torch.models import resnet as tres
 from repro_torch.parallel import collectives
@@ -195,6 +196,11 @@ def _round(world, mesh, topo, p_np, batches, out, checks, ckpt_dir):
                                 constraint_fn=cf, shards=sp, elastic=True)
     nd = len(h.batch_dims)
     rows = th.state_rows(state, plan)
+    # the collectives a round calls, derived from the plan, its bucket
+    # layouts and the mesh (the dry run's count)
+    checks["derived_round_counts"] = ha.collective_counts(
+        ha.round_collectives(plan, state.params, mesh,
+                             steps=h.steps_per_round))
     dense = state
     for r, b in enumerate(batches):
         tb = {k: mesh.take_block(torch.from_numpy(v), dim=nd)

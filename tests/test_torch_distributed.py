@@ -303,6 +303,18 @@ def test_replicated_bucket_collective_counts(worlds, world):
                     "reduce_scatter": 0, "all_gather": 0}
 
 
+@pytest.mark.parametrize("world", ["a", "b", "c"])
+def test_derived_round_collectives_equal_counted(worlds, world):
+    """The collectives of a round as the dry run derives them
+    (``launch/hlo_analysis.py::round_collectives``: the plan, its bucket
+    layouts and the mesh) equal the calls ``parallel/collectives.py``
+    counted in each of the world's real rounds, on every rank."""
+    _, checks = worlds[world]
+    for c in checks:
+        for r in range(W.ROUNDS):
+            assert c["derived_round_counts"] == c[f"round_counts_{r}"], r
+
+
 def test_local_level_stays_in_rank(worlds):
     """World c: each rank is a cluster, so a round's two local fires call
     no collective; its one global fire all-reduces each bucket of the
