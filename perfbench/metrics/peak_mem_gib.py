@@ -1,0 +1,7 @@
+"""The device memory the window needed at its peak:
+``torch.cuda.max_memory_allocated()`` over the window, after
+``reset_peak_memory_stats()``, in GiB."""
+
+
+def read(ctx):
+    return ctx.peak_bytes / 2 ** 30 if ctx.peak_bytes else None
