@@ -46,6 +46,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.comm.reducer import N_LEARNER_AXES, Reducer, serial_reduce
+from repro_torch.telemetry.spans import span
 from repro_torch.tree import flatten, leaf_paths, leaves, tree_map, unflatten
 
 # Default per-bucket cap (bytes of one learner's slice); HierAvgParams.
@@ -637,8 +638,10 @@ class Pipelined(Bucketed):
 
     def _stage(self, bucket, st):
         """Compress and reconstruct one bucket."""
-        payload, st2 = self.inner.compress([bucket], st)
-        xhat = self.inner.decompress(payload, [bucket], st2)
+        with span("comm.compress"):
+            payload, st2 = self.inner.compress([bucket], st)
+        with span("comm.decompress"):
+            xhat = self.inner.decompress(payload, [bucket], st2)
         return xhat[0], st2
 
     def reduce(self, avg_fn, tree, state, constraint_fn=None):
@@ -662,8 +665,9 @@ class Pipelined(Bucketed):
 
             def gavg(xhat):
                 wire = [lay._to_wire(b, xhat)]
-                out = avg_fn(wire, constraint_fn) if sp is None \
-                    else avg_fn(wire, constraint_fn, sp)
+                with span("comm.mean"):
+                    out = avg_fn(wire, constraint_fn) if sp is None \
+                        else avg_fn(wire, constraint_fn, sp)
                 return lay._to_codec(b, out[0])
             return gavg
 
@@ -681,13 +685,17 @@ class Pipelined(Bucketed):
                 # stage prev's mean first, then its finalize (bucket i of
                 # the same shape and dtype stands in as the template),
                 # then the compress of bucket i
-                outb, fin[prev] = self.inner.finalize(
-                    [gavg(xh)], [buckets[i]], st)
+                avg = gavg(xh)
+                with span("comm.finalize"):
+                    outb, fin[prev] = self.inner.finalize(
+                        [avg], [buckets[i]], st)
                 outs[prev] = outb[0]
                 xh, st = self._stage(buckets[i], sts[i])
             # drain: the last stage's mean and finalize
-            outb, fin[idxs[-1]] = self.inner.finalize(
-                [gavg(xh)], [buckets[idxs[-1]]], st)
+            avg = gavg(xh)
+            with span("comm.finalize"):
+                outb, fin[idxs[-1]] = self.inner.finalize(
+                    [avg], [buckets[idxs[-1]]], st)
             outs[idxs[-1]] = outb[0]
         new_state = (self.inner.join_bucket_states(state, fin)
                      if self.stateful else state)

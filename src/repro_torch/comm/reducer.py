@@ -23,6 +23,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.telemetry.spans import span
 from repro_torch.tree import leaves, tree_map
 
 N_LEARNER_AXES = 3   # [pods, G, S] — the stacked-learner leading axes
@@ -196,11 +197,16 @@ class CastReducer(Reducer):
 def serial_reduce(reducer: Reducer, avg_fn: Callable, tree, state,
                   constraint_fn: Optional[Callable] = None):
     """The serial composition: compress the whole tree, reconstruct,
-    average, finalize — every stage completes before the next starts."""
-    payload, state = reducer.compress(tree, state)
-    xhat = reducer.decompress(payload, tree, state)
-    out = avg_fn(xhat, constraint_fn)
-    return reducer.finalize(out, tree, state)
+    average, finalize — every stage completes before the next starts, in
+    a span of its own (``comm.<stage>``, telemetry/spans.py)."""
+    with span("comm.compress"):
+        payload, state = reducer.compress(tree, state)
+    with span("comm.decompress"):
+        xhat = reducer.decompress(payload, tree, state)
+    with span("comm.mean"):
+        out = avg_fn(xhat, constraint_fn)
+    with span("comm.finalize"):
+        return reducer.finalize(out, tree, state)
 
 
 def reduce_with(reducer: Reducer, avg_fn: Callable, tree, state,

@@ -35,7 +35,10 @@ Elastic rounds (``elastic=True``) take a participation mask per level:
 absent learners contribute weight 0 to the level's renormalized mean and
 keep their params and EF state untouched.  ``telemetry=`` adds the
 device-side statistics of ``repro_torch/telemetry/gradstats.py`` to the
-metrics without touching the trajectory.
+metrics without touching the trajectory.  A round opens the spans of
+``repro_torch/telemetry/spans.py`` (``hier.round``, ``hier.step``,
+``hier.fire.<level>``): a flag check each unless a profiler session or an
+installed tracer listens.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from repro_torch.core.topology import (LEARNER_AXES, HierTopology,
                                        average_over,
                                        stack_like, where_active)
 from repro_torch.optim import Optimizer
+from repro_torch.telemetry.spans import span
 from repro_torch.tree import leaves, tree_map
 
 
@@ -235,10 +239,16 @@ def _make_reduce(mesh, constraint_fn, sync_opt_state: bool):
     learners keep their own params AND their EF/``comm_state`` untouched
     across the missed fire (``where_active``, on this rank's block).
     ``active=None`` is the dense path.  ``mesh``: the bound mesh of
-    ranks the reductions run on, or None in one process."""
+    ranks the reductions run on, or None in one process.  Each fire runs
+    in the span ``hier.fire.<level name>`` (telemetry/spans.py)."""
 
     def reduce(level: ReductionLevel, state: TrainState,
                active=None) -> TrainState:
+        with span(f"hier.fire.{level.name}"):
+            return fire(level, state, active)
+
+    def fire(level: ReductionLevel, state: TrainState,
+             active) -> TrainState:
         avg_fn = lambda tree, cf=None, specs=None: average_over(  # noqa: E731
             tree, level.axes, cf, specs, active, mesh)
         mine = active if active is None or mesh is None \
@@ -361,6 +371,10 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
     n_dims = len(p.batch_dims)
 
     def run(state: TrainState, round_batch, active):
+        with span("hier.round"):
+            return nest(state, round_batch, active)
+
+    def nest(state: TrainState, round_batch, active):
         # the loop nest, flattened: level i runs over the round batch's
         # dim n-1-i, so it reduces after every prod(dims[n-1-i:]) steps,
         # innermost first.  One frame holds the running state, so a round
@@ -373,7 +387,8 @@ def make_hier_round(loss_fn: Callable, optimizer: Optimizer,
         ms = []
         stats: Dict[str, list] = {}
         for t in range(math.prod(dims)):
-            state, m = sgd_step(state, tree_map(lambda x: x[t], steps))
+            with span("hier.step"):
+                state, m = sgd_step(state, tree_map(lambda x: x[t], steps))
             ms.append(m)
             for i, level in enumerate(p.levels):
                 if (t + 1) % every[i]:

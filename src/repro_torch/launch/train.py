@@ -17,8 +17,10 @@ encoder-decoder (its batches carry stub audio frames).
 The flags are the reference's: ``--faults`` trains elastic rounds under a
 seeded fault schedule, ``--telemetry`` adds the device-side statistics,
 ``--metrics-out`` writes one ``train_round`` JSONL row per round,
-``--trace-out`` exports the round spans as a Chrome trace,
-``--profile-dir`` writes a ``torch.profiler`` trace there, ``--ckpt``
+``--trace-out`` exports the rounds' spans as a Chrome trace (``data``,
+``device``, ``host_sync`` and the round's own ``hier.*`` and ``comm.*``,
+telemetry/spans.py), ``--profile-dir`` writes a ``torch.profiler`` trace
+there, on the same clock as ``--trace-out``'s, ``--ckpt``
 saves the averaged model in the reference's checkpoint format, and
 ``--autotune CALIB_JSON`` ranks plans under a calibration artifact
 (``repro_torch.autotune``: probe, then calibrate), trains the top one
@@ -73,6 +75,7 @@ from repro_torch.models import build
 from repro_torch.models.stubs import make_train_batch
 from repro_torch.optim import sgd, step_decay_lr
 from repro_torch.telemetry import MetricsLogger, SpanTracer
+from repro_torch.telemetry.spans import installed
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -137,11 +140,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="write one schema-versioned train_round row "
                          "per round (telemetry/metrics.py JSONL sink)")
     ap.add_argument("--trace-out", default=None, metavar="TRACE_JSON",
-                    help="export host-side round spans as a Chrome "
-                         "trace (open in ui.perfetto.dev)")
+                    help="export the rounds' host-side spans, the "
+                         "round's own hier.*/comm.* included, as a "
+                         "Chrome trace (open in ui.perfetto.dev)")
     ap.add_argument("--profile-dir", default=None,
-                    help="bracket rounds with torch.profiler annotations "
-                         "and write the profiler's trace here")
+                    help="run the rounds under torch.profiler, the "
+                         "spans as its annotations, and write its trace "
+                         "here (on --trace-out's clock)")
     ap.add_argument("--ckpt", default=None,
                     help="save the averaged model here (the reference's "
                          "npz + manifest format)")
@@ -240,11 +245,9 @@ def _train(args, topo, mesh, device) -> None:
                             per_learner_batch=args.batch, seed=args.seed,
                             mesh=mesh, device=device)
     counts = dict(plan.counts_per_round())
-    template = None
-    if args.faults or args.trace_out or args.profile_dir:
-        template = init_template(bundle.init_train, device)
     faults = None
     if args.faults:
+        template = init_template(bundle.init_train, device)
         faults = FaultSchedule(args.faults, topo,
                                [lvl.name for lvl in plan.levels],
                                seed=args.seed,
@@ -270,18 +273,7 @@ def _train(args, topo, mesh, device) -> None:
               if args.metrics_out and lead else None)
     tracer = (SpanTracer(profile_dir=args.profile_dir)
               if (args.trace_out or args.profile_dir) and lead else None)
-    modeled_phases = None
     if tracer is not None:
-        # the per-level compress/collective split rides as MODELED child
-        # spans priced by the same bill every analytic surface reports
-        modeled_phases = []
-        for lvl in plan.levels:
-            comm_s, compute_s, _ = level_reduction_seconds(
-                lvl, topo, template, None)
-            if counts[lvl.name]:
-                modeled_phases += [
-                    (f"{lvl.name}/compress", compute_s * counts[lvl.name]),
-                    (f"{lvl.name}/collective", comm_s * counts[lvl.name])]
         tracer.start_profiler()
 
     if lead:
@@ -292,70 +284,74 @@ def _train(args, topo, mesh, device) -> None:
                  f"  mesh={tuple(mesh.shape.values())} ranks="
                  f"{mesh.size} backend={_backend()} level groups="
                  + "/".join(f"{k}:{_ranks(g)}" for k, g in groups.items())))
-    for r in range(args.rounds):
-        if mesh is not None:
-            # the round's wall is the world's: every rank starts together
-            collectives.barrier()
-        t0 = time.time()
-        drec = None
-        with (tracer.span(f"round[{r}]", args={"round": r})
-              if tracer else nullcontext()):
-            with tracer.span("data") if tracer else nullcontext():
-                batch = loader.next_round()
-            with (tracer.span("device", cat="device")
-                  if tracer else nullcontext()) as drec:
-                if faults is not None:
-                    state, metrics = round_fn(state, batch, faults.active(r))
-                else:
-                    state, metrics = round_fn(state, batch)
-                if tracer:
-                    # bill the device wait to this span, not host_sync
-                    tracer.fence(metrics)
-            with (tracer.span("host_sync")
+    # installed, the tracer also records the round's own spans
+    # (hier.*, comm.*)
+    with installed(tracer):
+        for r in range(args.rounds):
+            if mesh is not None:
+                # the round's wall is the world's: every rank starts
+                # together
+                collectives.barrier()
+            t0 = time.time()
+            with (tracer.span(f"round[{r}]", args={"round": r})
                   if tracer else nullcontext()):
-                # one device->host copy for the round's metrics (the
-                # whole grid's: one all-reduce over the world; the
-                # telemetry statistics are the grid's on every rank)
-                vec = torch.stack([v.float() for v in metrics.values()])
-                if mesh is not None:
-                    vec = torch.where(
-                        torch.tensor([k.startswith("telemetry/")
-                                      for k in metrics], device=vec.device),
-                        vec, collectives.world_mean(vec))
-                m = {k: float(v) for k, v in zip(metrics, vec.tolist())}
-        wall = time.time() - t0
-        if mesh is not None:
-            wall = collectives.world_max(wall, device)
-        if tracer and modeled_phases:
-            tracer.add_modeled_children(drec, modeled_phases)
-        if faults is not None:
-            # host-side schedule mask: no extra device read for fracs
-            fracs = [float(f) for f in faults.active_frac(r)]
-            extra = ("  active=" + "/".join(
-                f"{lvl.name}:{f:.2f}" for lvl, f in zip(plan.levels, fracs))
-                + f" wall~{round_wall(fracs) * 1e3:.2f}ms")
-        else:
-            fracs, extra = None, ""
-        if lead:
-            print(f"round {r:3d}  loss={m['loss']:.4f} "
-                  f"acc={m.get('accuracy', float('nan')):.3f} "
-                  f"({wall:.1f}s, "
-                  f"{loader.tokens_per_round * args.seq} tokens)" + extra,
-                  flush=True)
-        if logger is not None or controller is not None:
-            row = {"round": r, "loss": m["loss"],
-                   "accuracy": m.get("accuracy", float("nan")),
-                   "wall_s": wall, "plan": plan.describe()}
-            row.update({k: v for k, v in m.items()
-                        if k.startswith("telemetry/")})
-            if fracs is not None:
-                row["active_frac"] = {
-                    lvl.name: f for lvl, f in zip(plan.levels, fracs)}
-                row["modeled_wall_s"] = round_wall(fracs)
-            if logger is not None:
-                logger.log_row("train_round", **row)
-            if controller is not None:
-                controller.observe(row)
+                with tracer.span("data") if tracer else nullcontext():
+                    batch = loader.next_round()
+                with (tracer.span("device", cat="device")
+                      if tracer else nullcontext()):
+                    if faults is not None:
+                        state, metrics = round_fn(state, batch,
+                                                  faults.active(r))
+                    else:
+                        state, metrics = round_fn(state, batch)
+                    if tracer:
+                        # bill the device wait to this span, not host_sync
+                        tracer.fence(metrics)
+                with (tracer.span("host_sync")
+                      if tracer else nullcontext()):
+                    # one device->host copy for the round's metrics (the
+                    # whole grid's: one all-reduce over the world; the
+                    # telemetry statistics are the grid's on every rank)
+                    vec = torch.stack([v.float() for v in metrics.values()])
+                    if mesh is not None:
+                        vec = torch.where(
+                            torch.tensor([k.startswith("telemetry/")
+                                          for k in metrics],
+                                         device=vec.device),
+                            vec, collectives.world_mean(vec))
+                    m = {k: float(v) for k, v in zip(metrics, vec.tolist())}
+            wall = time.time() - t0
+            if mesh is not None:
+                wall = collectives.world_max(wall, device)
+            if faults is not None:
+                # host-side schedule mask: no extra device read for fracs
+                fracs = [float(f) for f in faults.active_frac(r)]
+                extra = ("  active=" + "/".join(
+                    f"{lvl.name}:{f:.2f}"
+                    for lvl, f in zip(plan.levels, fracs))
+                    + f" wall~{round_wall(fracs) * 1e3:.2f}ms")
+            else:
+                fracs, extra = None, ""
+            if lead:
+                print(f"round {r:3d}  loss={m['loss']:.4f} "
+                      f"acc={m.get('accuracy', float('nan')):.3f} "
+                      f"({wall:.1f}s, "
+                      f"{loader.tokens_per_round * args.seq} tokens)" + extra,
+                      flush=True)
+            if logger is not None or controller is not None:
+                row = {"round": r, "loss": m["loss"],
+                       "accuracy": m.get("accuracy", float("nan")),
+                       "wall_s": wall, "plan": plan.describe()}
+                row.update({k: v for k, v in m.items()
+                            if k.startswith("telemetry/")})
+                if fracs is not None:
+                    row["active_frac"] = {
+                        lvl.name: f for lvl, f in zip(plan.levels, fracs)}
+                    row["modeled_wall_s"] = round_wall(fracs)
+                if logger is not None:
+                    logger.log_row("train_round", **row)
+                if controller is not None:
+                    controller.observe(row)
 
     if tracer is not None:
         tracer.stop_profiler()

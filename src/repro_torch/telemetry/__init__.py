@@ -6,9 +6,11 @@ Three layers, composable and individually optional:
 * :mod:`repro_torch.telemetry.metrics` — :class:`MetricsLogger`: typed
   counter/gauge/histogram channels plus schema-versioned structured
   rows (JSONL sink + in-memory ring buffer);
-* :mod:`repro_torch.telemetry.spans` — :class:`SpanTracer`: host-side
-  span timers with device fencing, Chrome-trace export
-  (Perfetto-viewable), optional ``torch.profiler`` bracketing;
+* :mod:`repro_torch.telemetry.spans` — ``span``, the hook the round and
+  the reducers open their spans with (``hier.*``, ``comm.*``: profiler
+  annotations, or recorded in an installed tracer, else one flag check),
+  and :class:`SpanTracer`: host-side span timers with device fencing,
+  Chrome-trace export on the profiler's clock (Perfetto-viewable);
 * :mod:`repro_torch.telemetry.gradstats` — device-side statistics inside
   the round behind ``make_hier_round(..., telemetry=)``: per-level
   parameter divergence, gradient-norm variance, EF residual mass,

@@ -474,10 +474,18 @@ def test_train_cli_runs_each_flag(flag, tmp_path, capsys):
         with open(path) as f:
             ev = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
         names = {e["name"] for e in ev}
+        # the round's own spans, measured, inside each round's device span
         assert {"round[0]", "round[1]", "data", "device", "host_sync",
-                "global/collective"} <= names
-        assert {e["cat"] for e in ev} == {"host", "device", "modeled"}
+                "hier.round", "hier.step", "hier.fire.local",
+                "hier.fire.global", "comm.compress", "comm.mean"} <= names
+        assert {e["cat"] for e in ev} == {"host", "device"}
+        dev = [e for e in ev if e["name"] == "device"]
+        for e in ev:
+            if e["name"].startswith(("hier.", "comm.")):
+                assert any(d["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                           <= d["ts"] + d["dur"] + 1e-3 for d in dev), e
     else:
         with gzip.open(f"{path}/trace.json.gz", "rt") as f:
             names = {e.get("name") for e in json.load(f)["traceEvents"]}
-        assert {"round[0]", "device"} <= names
+        assert {"round[0]", "device", "hier.round", "hier.fire.global",
+                "comm.finalize"} <= names

@@ -1,7 +1,9 @@
 """The port's telemetry against the JAX package's.
 
-Row schemas, the JSONL sink and the Chrome-trace export are copies and
-must write what the reference writes.  The device-side statistics
+Row schemas and the JSONL sink are copies and must write what the
+reference writes; the Chrome-trace export carries the profiler's time
+origin, and the round's spans (telemetry/spans.py) nest as the round
+runs and change nothing.  The device-side statistics
 (gradstats) are held to the reference under ``jax.jit`` exactly on
 integer inputs in [-2, 2] over power-of-two learner groups (every sum,
 mean and square is then exact in fp32, in any order) and within 1e-6
@@ -114,21 +116,19 @@ def test_chrome_trace_nests_and_the_profiler_writes_its_trace(tmp_path):
     tracer.start_profiler()
     x = torch.ones(8, 8)
     for r in range(2):
-        with tracer.span(f"round[{r}]") as rnd:
+        with tracer.span(f"round[{r}]"):
             with tracer.span("device", cat="device"):
                 y = (x * x).sum()
                 tracer.fence({"y": y})
             with tracer.span("host_sync"):
                 float(y)
-        tracer.add_modeled_children(rnd, [("compress", 1e-6),
-                                          ("collective", 2e-6)])
     tracer.stop_profiler()
     path = str(tmp_path / "trace.json")
     tracer.export_chrome_trace(path)
     with open(path) as fh:
         doc = json.load(fh)
     events = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
-    assert len(events) == 10
+    assert len(events) == 6
     rounds = [e for e in events if e["name"].startswith("round")]
     assert rounds[0]["ts"] <= rounds[1]["ts"]
     for c in events:
@@ -136,11 +136,185 @@ def test_chrome_trace_nests_and_the_profiler_writes_its_trace(tmp_path):
             assert any(p["ts"] <= c["ts"]
                        and c["ts"] + c["dur"] <= p["ts"] + p["dur"] + 1
                        for p in rounds), c
-    assert {"host", "device", "modeled"} <= {e["cat"] for e in events}
-    # the profiler's own trace, with the span annotations in it
+    # measured spans only
+    assert {e["cat"] for e in events} == {"host", "device"}
+    # the profiler's own trace, with the span annotations in it, on the
+    # same time origin
     with gzip.open(os.path.join(prof, "trace.json.gz"), "rt") as fh:
-        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+        pdoc = json.load(fh)
+    names = {e.get("name") for e in pdoc["traceEvents"]}
     assert {"round[0]", "round[1]", "device", "host_sync"} <= names
+    assert doc["baseTimeNanoseconds"] == pdoc["baseTimeNanoseconds"]
+
+
+# --------------------------------------------------------------------- #
+# spans inside the round
+
+_SPAN_PLAN = "local@2/global@4:topk:0.1"
+_SPAN_ENGINES = {"perleaf": {"bucket_bytes": 0},
+                 "pipelined": {"bucket_bytes": 512, "overlap": True}}
+_SHAPE = (1, 2, 2)
+
+
+def _span_setup(engine):
+    """A two-level top-k round on the MLP, its state and two batches."""
+    hier = HierAvgParams(plan=_SPAN_PLAN, **_SPAN_ENGINES[engine])
+    opt = toptim.sgd(0.1, momentum=0.9)
+    params = convert.tree_from_numpy(_mlp_np(3), device="cpu")
+    state = th.init_state(HierTopology(*_SHAPE), lambda g: params, opt,
+                          None, plan=hier.resolved_plan, device="cpu")
+    rng = np.random.default_rng(4)
+    batches = [tree_map(_t, _mixture(rng, hier.batch_dims + _SHAPE + (B,)))
+               for _ in range(2)]
+    return hier, opt, state, batches
+
+
+def _run(rnd, state, batches):
+    for b in batches:
+        state, _ = rnd(state, b)
+    return state
+
+
+def _annotations(prof, tmp_path):
+    """(name, start, end) in us of the profiler's user annotations."""
+    path = str(tmp_path / "prof.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+
+
+def _inside(child, parents):
+    return [p for p in parents
+            if p[1] <= child[1] and child[2] <= p[2] + 1e-2]
+
+
+def _profiled(engine, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+    hier, opt, state, batches = _span_setup(engine)
+    rnd = th.make_hier_round(tres.mlp_cls_loss, opt, hier)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state = _run(rnd, state, batches[:1])
+    state = _run(rnd, state, batches[1:])
+    return hier, state, _annotations(prof, tmp_path)
+
+
+@pytest.mark.parametrize("engine", sorted(_SPAN_ENGINES))
+def test_round_spans_nest_under_the_profiler(engine, tmp_path):
+    """One round under a CPU profiler session: one ``hier.round``, a
+    ``hier.step`` a step, the plan's count of fires a level, every step
+    and fire inside the round and every codec stage inside a fire; the
+    pipelined engine opens the stages once a bucket."""
+    hier, _, spans = _profiled(engine, tmp_path)
+    by = {}
+    for s in spans:
+        by.setdefault(s[0], []).append(s)
+    assert len(by["hier.round"]) == 1
+    assert len(by["hier.step"]) == hier.steps_per_round == 4
+    assert len(by["hier.fire.local"]) == 2
+    assert len(by["hier.fire.global"]) == 1
+    fires = by["hier.fire.local"] + by["hier.fire.global"]
+    for s in by["hier.step"] + fires:
+        assert _inside(s, by["hier.round"]), s
+    stages = ("comm.compress", "comm.decompress", "comm.mean",
+              "comm.finalize")
+    assert set(by) == {"hier.round", "hier.step", "hier.fire.local",
+                       "hier.fire.global"} | set(stages)
+    for name in stages:
+        for s in by[name]:
+            assert len(_inside(s, fires)) == 1, s
+    # the local mean: one serial pass a fire; the global top-k: one a
+    # fire per leaf, one a bucket pipelined
+    glob = hier.resolved_plan.levels[1].reducer
+    units = 1
+    if engine == "pipelined":
+        units = glob.layout_for(_span_setup(engine)[2].params).n_buckets
+        assert units > 2
+    for name in stages:
+        got = [s for s in by[name] if _inside(s, by["hier.fire.global"])]
+        assert len(got) == units, (name, len(got))
+        assert len(by[name]) == units + 2
+
+
+class _Forbidden:
+    def __init__(self, *a, **k):
+        raise AssertionError("record_function entered with no profiler")
+
+
+@pytest.mark.parametrize("engine", sorted(_SPAN_ENGINES))
+def test_spans_cost_no_record_function_and_change_nothing(engine, tmp_path,
+                                                          monkeypatch):
+    """With no profiler session and no tracer the round enters no
+    ``record_function``, and neither does an installed tracer without a
+    session; both rounds equal the profiled one bit for bit, and the
+    tracer records the profiler's spans."""
+    from repro_torch.telemetry import spans as tspans
+    hier, want, annotated = _profiled(engine, tmp_path)
+    monkeypatch.setattr(torch.profiler, "record_function", _Forbidden)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        _Forbidden)
+    _, opt, state, batches = _span_setup(engine)
+    rnd = th.make_hier_round(tres.mlp_cls_loss, opt, hier)
+    bare = _run(rnd, state, batches)
+    tracer = ttel.SpanTracer()
+    with tspans.installed(tracer):
+        traced = _run(rnd, state, batches[:1])
+    traced = _run(rnd, traced, batches[1:])
+    assert tspans._TRACER is None
+    for got in (bare, traced):
+        for x, y in zip(leaves((want.params, want.opt_state,
+                                want.comm_state)),
+                        leaves((got.params, got.opt_state, got.comm_state))):
+            assert torch.equal(x, y)
+    assert sorted(s["name"] for s in tracer.spans) \
+        == sorted(s[0] for s in annotated)
+
+
+def test_step_api_fires_carry_the_level_name():
+    """``make_hier_step`` opens the same fire spans as the round (a
+    level fires alone when the next one does not), each around its
+    codec stages."""
+    from repro_torch.telemetry import spans as tspans
+    hier, opt, state, batches = _span_setup("perleaf")
+    step = th.make_hier_step(tres.mlp_cls_loss, opt, hier)
+    tracer = ttel.SpanTracer()
+    flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])),
+                    batches[0])
+    with tspans.installed(tracer):
+        for t in range(4):
+            state, _ = step(state, tree_map(lambda x: x[t], flat))
+    fires = [s for s in tracer.spans if s["name"].startswith("hier.fire")]
+    assert [s["name"] for s in fires] == ["hier.fire.local",
+                                          "hier.fire.global"]
+    assert all(s["depth"] == 0 for s in fires)
+    stages = [s for s in tracer.spans if s["name"].startswith("comm.")]
+    assert len(stages) == 8 and all(s["depth"] == 1 for s in stages)
+
+
+def test_tracer_and_profiler_spans_share_a_clock(tmp_path):
+    """A tracer span and the profiler's annotation of it start within
+    1 ms of each other in the two exported files."""
+    prof = str(tmp_path / "prof")
+    tracer = ttel.SpanTracer(profile_dir=prof)
+    tracer.start_profiler()
+    x = torch.ones(64, 64)
+    for _ in range(3):
+        with tracer.span("probe"):
+            (x @ x).sum()
+    tracer.stop_profiler()
+    path = str(tmp_path / "trace.json")
+    tracer.export_chrome_trace(path)
+    with open(path) as fh:
+        mine = [e["ts"] for e in json.load(fh)["traceEvents"]
+                if e.get("name") == "probe"]
+    with gzip.open(os.path.join(prof, "trace.json.gz"), "rt") as fh:
+        theirs = [e["ts"] for e in json.load(fh)["traceEvents"]
+                  if e.get("name") == "probe"
+                  and e.get("cat") == "user_annotation"]
+    assert len(mine) == len(theirs) == 3
+    for a, b in zip(sorted(mine), sorted(theirs)):
+        assert abs(a - b) < 1e3, (a, b)
 
 
 # --------------------------------------------------------------------- #
